@@ -1,0 +1,29 @@
+"""pednstream_tpu_torch — the pedestrian Link Transmission Model on PyTorch
+and CUDA.
+
+The port of ``pednstream_tpu`` to an NVIDIA H100, module by module under
+the same names.  It imports ``torch``, numpy, networkx and PyYAML, and
+never JAX.  This slice holds the host-side scenario compiler
+(config, topology, demand, routing tables, scenario, generator), the
+engine's batched fast path (engine, fd, routing.turning_fractions_step)
+and the fused N-curve history-read kernel (ops, csrc/ncurve.cu).
+"""
+
+from .config import load_config
+from .engine import simulate, simulate_batched, step_fn
+from .generator import NetworkEnvGenerator
+from .scenario import Scenario, build_scenario
+from .state import EngineParams, NetworkState, StepOutputs
+
+__all__ = [
+    "load_config",
+    "simulate",
+    "simulate_batched",
+    "step_fn",
+    "NetworkEnvGenerator",
+    "Scenario",
+    "build_scenario",
+    "EngineParams",
+    "NetworkState",
+    "StepOutputs",
+]

@@ -1,0 +1,413 @@
+"""The LTM engine step on tensors (the counterpart of ``pednstream_tpu/engine.py``).
+
+One step is ``network_loading(t)`` of the reference (SURVEY.md §3.2) over
+all links and nodes at once: sending flows from state t-1, receiving flows
+(which need the sending flow of the reverse link), the padded per-node
+merge/diverge solve, the cumulative-curve write-back and the density/FD
+update.  Every state leaf carries a leading replica axis ``B``; ``t`` is a
+Python int shared by the lockstep batch (``NetworkState.t``), so the whole
+batch advances by one call per step.
+
+This slice runs the fast path with the fused history read: the three
+per-link ring lookbacks come from one :func:`ops.fused_history_reads` call
+per step (a CUDA kernel on the card), which the JAX engine reaches with
+``use_pallas=True``.  Stochastic steps draw from an explicit
+``torch.Generator`` in a fixed order: release, activity (skipped when every
+link's activity probability is zero), reverse occupancy, speed noise.  The
+JAX PRNG streams cannot be reproduced, so stochastic runs agree with the
+JAX engine in distribution only.
+
+``step_fn`` updates the ring buffers of the state it is given in place
+(``ring[:, t % H] = x``): the state it returns shares them, and the old
+state must not be stepped again.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+
+from .fd import link_flow_kv, speed_from_density
+from .ops import fused_history_reads
+from .routing import turning_fractions_step
+from .state import EngineParams, NetworkState, StepOutputs
+from .topology import FD_TYPES
+
+_f32 = torch.float32
+_FAST_BINOM_EXACT_N = 16
+
+
+def binom_fast(nf, p, u, z):
+    """The hybrid binomial sampler of ``pednstream_tpu.engine._binom``
+    (mode='fast') as a pure function of its random inputs.
+
+    ``nf`` holds whole non-negative trial counts, ``p`` the success
+    probabilities, ``u`` one uniform [0, 1) and ``z`` one standard normal
+    per element.  For n <= 16 the sample is the exact inverse CDF of u,
+    walking the pmf by its term recursion; above, it is the normal
+    approximation round(n p + sqrt(n p (1-p)) z) clipped to [0, n].
+    """
+    pc = torch.clamp(p, 0.0, 1.0)
+    q = 1.0 - pc
+    ratio = pc / torch.clamp(q, min=1e-12)
+    pmf = torch.pow(q, nf)  # P[X = 0]
+    cdf = pmf
+    cnt = torch.zeros_like(nf)
+    for k in range(_FAST_BINOM_EXACT_N):
+        # u >= P[X <= k]  =>  the sample exceeds k
+        cnt = cnt + ((u >= cdf) & (nf > k)).to(nf.dtype)
+        pmf = pmf * ((nf - k) / (k + 1.0)) * ratio
+        pmf = torch.where(nf >= k + 1.0, pmf, 0.0)
+        cdf = cdf + pmf
+    mu = nf * pc
+    sigma = torch.sqrt(torch.clamp(mu * (1.0 - pc), min=0.0))
+    gauss = torch.minimum(torch.clamp(torch.round(mu + sigma * z), min=0.0), nf)
+    return torch.where(nf <= _FAST_BINOM_EXACT_N, cnt, gauss)
+
+
+def _binom(n, p, gen: Optional[torch.Generator], stochastic: bool):
+    """Binomial with numpy-style truncation of a float ``n``.  Deterministic
+    mode returns the expectation floor(n) * p; stochastic mode draws one
+    uniform, then one normal per element from ``gen`` for :func:`binom_fast`."""
+    nf = torch.floor(torch.clamp(n, min=0.0))
+    if not stochastic:
+        return nf * p
+    u = torch.rand(nf.shape, generator=gen, dtype=_f32, device=nf.device)
+    z = torch.randn(nf.shape, generator=gen, dtype=_f32, device=nf.device)
+    return binom_fast(nf, p, u, z)
+
+
+def _rev(scn, x):
+    """Value of the reverse link of every link (last axis)."""
+    return x[..., scn.reverse_idx]
+
+
+def _area(scn, ep: EngineParams, st: NetworkState):
+    return torch.where(scn.is_separator, ep.length * st.sep_width, ep.length * ep.width)
+
+
+def _lookback_state(scn, ep: EngineParams, st: NetworkState):
+    """The dynamic N-curve lookback tau (link.py:260), the diffusion
+    coefficients ``[B, 4, E]`` (link.py:199-214) and the shockwave lookback
+    (link.py:380), with the windowed-ring clamps of
+    ``pednstream_tpu.engine._lookback_state``."""
+    avg_tt = st.avg_tt
+    tau = torch.round(avg_tt / scn.unit_time).to(torch.int32)
+    tau_shock = ep.tau_shockwave
+    if scn.windowed:
+        # bounded N-curve and shockwave lookbacks: stay inside the ring
+        tau = torch.clamp(tau, max=scn.H - 6)
+        tau_shock = torch.clamp(tau_shock, max=scn.H - 1)
+    F = 1.0 / (1.0 + ep.gamma.to(_f32) * avg_tt)
+    one_m_f = 1.0 - F
+    sq = one_m_f * one_m_f
+    coefs = torch.stack([F, F * one_m_f, F * sq, F * (sq * one_m_f)], dim=1)
+    return tau, coefs, tau_shock
+
+
+def _history(scn, ep: EngineParams, st: NetworkState, t: int):
+    """The three ring lookbacks of this step through the fused kernel
+    (``pednstream_tpu.engine._fused_hist``)."""
+    tau, coefs, tau_shock = _lookback_state(scn, ep, st)
+    B = st.batch
+    idx_ci = torch.clamp(t - tau, min=0).to(torch.int32)  # = ts + 1 - tau
+    base = (t - 1 - tau).to(torch.int32)  # diffusion lag base
+    idx_co = torch.clamp(t - tau_shock, min=0).to(torch.int32).expand(B, -1).contiguous()
+    ci, co, diff = fused_history_reads(
+        st.cum_in_ring, st.cum_out_ring, st.inflow_ring, idx_ci, idx_co, base,
+        coefs, scn.H)
+    return {"tau_shock": tau_shock, "ci": ci, "co": co, "diff": diff}
+
+
+def _sending_flows(scn, ep: EngineParams, st: NetworkState, t: int, hist,
+                   gen, stochastic: bool):
+    """Link.cal_sending_flow(t-1) over all links (link.py:216-370).
+
+    Density, congestion and release factors and the diffusion coefficient
+    are float32 as in the reference's state arrays; flows are float32 too
+    in this slice.
+    """
+    dt = scn.unit_time
+    ts = t - 1
+    num_peds = st.num_peds
+    area = _area(scn, ep, st)
+    # get_density(ts): shared bidirectional for a Link (link.py:190-197),
+    # the stored own density for a Separator (link.py:427-428)
+    shared_density = torch.where(
+        scn.is_separator, st.density, (num_peds + _rev(scn, num_peds)) / area)
+    early = ts < ep.free_flow_tau  # link.py:267-269
+
+    # free-flow / congestion blended N-curve boundary (link.py:274-288)
+    kc32 = ep.k_critical.to(_f32)
+    cf = torch.clamp((st.density - kc32) / (ep.k_jam - ep.k_critical).to(_f32), 0.0, 1.0)
+    boundary_freeflow = torch.clamp(hist["ci"] - st.cum_out, min=0.0)
+    boundary = cf * num_peds + (1.0 - cf) * boundary_freeflow
+
+    front_gate = _rev(scn, st.back_gate)  # link.py:110-126 cross-coupling
+    cap = front_gate * ep.k_critical * ep.free_flow_speed * dt  # link.py:296
+    sending = torch.minimum(boundary, cap)
+    original = sending
+
+    # stochastic release mitigation (link.py:309-346)
+    releasing_factor = torch.clamp(shared_density / ep.k_jam.to(_f32), 0.0, 1.0)
+    releasing_prob = 0.7 + 0.15 * torch.pow(releasing_factor, 0.8)  # link.py:80
+
+    diffusion = torch.clamp(torch.ceil(hist["diff"]), min=0.0)
+    freeflow = shared_density <= kc32
+    # platoon mix (link.py:329-330); (1.0 - 0.8) is the reference's
+    # 0.19999999999999996, not 0.2
+    w_mix = 0.8
+    mixed = torch.floor(torch.minimum(w_mix * diffusion + (1.0 - w_mix) * sending, sending))
+    released = _binom(sending, releasing_prob, gen, stochastic)  # link.py:336-343
+    s_pos = torch.where(freeflow, torch.where(diffusion > 0, mixed, released), released)
+    sending = torch.where(sending > 0, s_pos, sending)
+
+    # activity stay (link.py:350-358), skipped when decided zero at build time
+    if not scn.act_statically_zero:
+        act_p = ep.activity_probability
+        staying = _binom(sending, act_p, gen, stochastic)
+        sending = torch.where((act_p > 0) & (sending > 1), sending - staying, sending)
+
+    # EMA smoothing against the previous sending flow (link.py:362-364)
+    sending = torch.clamp(sending, min=0.0)
+    sending = torch.minimum(torch.floor(0.8 * sending + 0.2 * st.sending_prev), original)
+    S = torch.where(early, 0.0, sending)
+    return S, shared_density
+
+
+def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t: int, S, hist,
+                     gen, stochastic: bool):
+    """cal_receiving_flow(_with_reverse) (link.py:372-416) and the
+    Separator variant (link.py:480-512)."""
+    dt = scn.unit_time
+    area = _area(scn, ep, st)
+    cum_out_at = hist["co"]
+    early = (t - hist["tau_shock"]) < 0  # ts + 1 - tau_shockwave < 0
+
+    rev_rand = _binom(_rev(scn, st.num_peds), scn.p_reverse, gen, stochastic)  # link.py:382
+    kjam_area = ep.k_jam * area
+    b_link = torch.where(
+        early, kjam_area - rev_rand,
+        torch.clamp(cum_out_at + kjam_area - rev_rand - st.cum_in, min=0.0))
+    b_sep = torch.where(early, kjam_area, cum_out_at + kjam_area - st.cum_in)
+    boundary = torch.where(scn.is_separator, b_sep, b_link)
+
+    cap = st.back_gate * ep.k_critical * ep.free_flow_speed * dt  # link.py:393
+    rf = torch.clamp(torch.minimum(boundary, cap), min=0.0)
+
+    # smoothing against the stored receiving flow (link.py:399-401)
+    rf = torch.where(
+        st.recv_prev >= 0,
+        torch.minimum(torch.floor(rf * 0.8 + st.recv_prev * 0.2), rf),
+        rf)
+
+    # reverse-sending subtraction (link.py:407-416); separators skip it
+    return torch.where(scn.is_separator, torch.clamp(rf, min=0.0),
+                       torch.clamp(rf - _rev(scn, S), min=0.0))
+
+
+def _classic_solve(dem_mat, r_pad):
+    """'classic' proportional supply allocation (node.py:272-300) over any
+    leading axes: ``dem_mat [..., M, M]``, ``r_pad [..., M]``."""
+    col_sums = dem_mat.sum(dim=-2, keepdim=True)
+    share = dem_mat / torch.where(col_sums != 0, col_sums, 1e-5)
+    supply = r_pad.unsqueeze(-2) * share
+    g = torch.floor(torch.minimum(dem_mat, supply))
+    q_in = torch.clamp(g.sum(dim=-1), min=0.0)  # outflow of incoming slot i
+    q_out = torch.clamp(g.sum(dim=-2), min=0.0)  # inflow to outgoing slot j
+    return q_in, q_out
+
+
+def _node_solve(scn, ep: EngineParams, t: int, S, R, phi_c=None):
+    """Padded merge/diverge over all nodes at once (node.py:164-300).
+
+    Gathers per-node sending/receiving vectors ``[B, N, M]`` (with the
+    origin-demand and destination big-M virtual slot 0), solves OneToOne
+    nodes by the crossing rule and the others by the classic allocation on
+    ``phi_base``, re-solves the NR routed nodes on their dynamic
+    ``phi_c [B, NR, M, M]`` and writes those rows over the result, then
+    gathers the flows back to the link axis.
+    """
+    B = S.shape[0]
+    N, M = scn.n_nodes, scn.max_deg
+    demand_t = ep.demand[:, t - 1]  # node.py:176
+
+    s_pad = torch.where(scn.in_valid, S[:, scn.in_safe], 0.0)
+    s_pad = torch.where(scn.virt_slot, demand_t[:, None], s_pad)
+    s_pad = torch.where(scn.slot_valid, s_pad, 0.0)
+    r_pad = torch.where(scn.out_valid, R[:, scn.out_safe], 0.0)
+    r_pad = torch.where(scn.virt_slot, ep.virt_recv[:, None], r_pad)
+    r_pad = torch.where(scn.slot_valid, r_pad, 0.0)
+
+    q_in_reg, q_out_reg = _classic_solve(ep.phi_base * s_pad.unsqueeze(-1), r_pad)
+    if phi_c is not None:
+        ids = scn.routing.routed_ids
+        q_in_c, q_out_c = _classic_solve(phi_c * s_pad[:, ids].unsqueeze(-1), r_pad[:, ids])
+        q_in_reg[:, ids] = q_in_c
+        q_out_reg[:, ids] = q_out_c
+
+    # OneToOne crossing solve (node.py:230-242): slot k <-> slot 1-k
+    s2, r2 = s_pad[..., :2], r_pad[..., :2]
+    pad = torch.zeros((B, N, M - 2), dtype=s_pad.dtype, device=s_pad.device)
+    q_in_oto = torch.cat([torch.minimum(s2, r2.flip(-1)), pad], dim=-1)
+    q_out_oto = torch.cat([torch.minimum(s2.flip(-1), r2), pad], dim=-1)
+    otoo = scn.is_otoo[:, None]
+    q_in = torch.where(otoo, q_in_oto, q_in_reg)
+    q_out = torch.where(otoo, q_out_oto, q_out_reg)
+
+    # write-back: each directed link is incoming to exactly one node and
+    # outgoing from exactly one node (node.py:146-162)
+    outflow_e = q_in.reshape(B, N * M)[:, scn.end_flat]
+    inflow_e = q_out.reshape(B, N * M)[:, scn.start_flat]
+    virt_dep = torch.where(scn.has_virtual, q_in[..., 0], 0.0)
+    virt_arr = torch.where(scn.has_virtual, q_out[..., 0], 0.0)
+    return inflow_e, outflow_e, virt_dep, virt_arr
+
+
+def _update_link_states(scn, ep: EngineParams, st: NetworkState, t: int,
+                        inflow_e, outflow_e, gen, stochastic: bool):
+    """Density and FD speed/travel-time update (network.py:257-264,
+    link.py:133-188, Separator variant link.py:430-452).  Writes this
+    step's travel time into ``st.tt_ring`` in place."""
+    W = scn.avg_tt_window
+    num_peds = st.num_peds + (inflow_e - outflow_e)
+    density = num_peds / _area(scn, ep, st)  # link.py:136
+
+    k_opp = torch.where(scn.is_separator, 0.0, _rev(scn, density))
+    k_eff = density + ep.bi_factor.to(_f32) * k_opp
+    v = speed_from_density(k_eff, ep.free_flow_speed, ep.k_critical, ep.k_jam, scn.fd_type)
+    if stochastic:
+        noise = torch.randn(v.shape, generator=gen, dtype=_f32, device=v.device)
+        v = torch.where(ep.speed_noise_std > 0, v + noise * ep.speed_noise_std, v)
+    v = torch.clamp(v, min=0.0)
+
+    # in the reference's free-flow branch (yperman/greenshields, no noise)
+    # the speed is a Python float, so length/speed divides in float64:
+    # ep.tt_freeflow32 carries that value
+    ff_exact = (k_eff <= ep.k_critical.to(_f32)) & (scn.fd_type != FD_TYPES["smulders"])
+    if stochastic:
+        ff_exact = ff_exact & (ep.speed_noise_std <= 0)
+    tt_f32div = ep.length.to(_f32) / torch.where(v > 0, v, 1.0)
+    travel_time = torch.where(
+        v > 0, torch.where(ff_exact, ep.tt_freeflow32, tt_f32div), ep.max_travel_time)
+    link_flow = link_flow_kv(density, v)
+
+    # rolling average travel time over the last W steps (link.py:84-91,183-186);
+    # the oldest slot is read before this step's value overwrites it
+    run_sum = st.tt_run_sum + travel_time
+    if t >= W:
+        run_sum = run_sum - st.tt_ring[:, (t - W) % W]
+        avg_tt = run_sum / W
+    else:
+        avg_tt = ep.travel_time0.expand_as(run_sum)
+    st.tt_ring[:, t % W] = travel_time
+    return num_peds, density, v, travel_time, link_flow, avg_tt, run_sum
+
+
+def step_fn(scn, ep: EngineParams, st: NetworkState,
+            gen: Optional[torch.Generator] = None, stochastic: bool = False,
+            record: bool = True) -> Tuple[NetworkState, Optional[StepOutputs]]:
+    """One ``network_loading(t)`` step of the whole lockstep batch.
+
+    ``gen`` (on the state's device) is required when ``stochastic``.  The
+    rings of ``st`` are updated in place and shared with the returned
+    state.  Returns ``(new_state, outputs)``; outputs are None unless
+    ``record``.
+    """
+    if stochastic and gen is None:
+        raise ValueError("a stochastic step needs a torch.Generator")
+    t = st.t
+    H = scn.H
+
+    # 0) the three ring lookbacks in one fused kernel pass
+    hist = _history(scn, ep, st, t)
+
+    # 1) sending flows from state t-1
+    S, shared_density = _sending_flows(scn, ep, st, t, hist, gen, stochastic)
+
+    # 2) dynamic turning fractions of the routed nodes (path_finder.py:717-737)
+    phi_c = None
+    if scn.routing is not None:
+        cap_default = st.back_gate * ep.k_critical * ep.free_flow_speed * scn.unit_time
+        phi_c = turning_fractions_step(
+            scn.routing, scn.max_deg, shared_density, st.recv_prev, cap_default,
+            ep.od_table[:, t])
+
+    # 3) receiving flows (need S of the reverse links)
+    R = _receiving_flows(scn, ep, st, t, S, hist, gen, stochastic)
+
+    # 4) node merge/diverge and write-back
+    inflow_e, outflow_e, virt_dep, virt_arr = _node_solve(scn, ep, t, S, R, phi_c)
+
+    # 5) cumulative curves (node.py:146-162), ring rows written in place;
+    #    the inflow ring feeds the fused read's diffusion taps
+    cum_in = st.cum_in + inflow_e
+    cum_out = st.cum_out + outflow_e
+    st.cum_in_ring[:, t % H] = cum_in
+    st.cum_out_ring[:, t % H] = cum_out
+    st.inflow_ring[:, t % H] = inflow_e
+
+    # 6) density, speed and travel-time updates
+    num_peds, density, speed, travel_time, link_flow, avg_tt, run_sum = (
+        _update_link_states(scn, ep, st, t, inflow_e, outflow_e, gen, stochastic))
+
+    new_state = st.replace(
+        t=t + 1,
+        cum_in=cum_in,
+        cum_out=cum_out,
+        inflow=inflow_e,
+        outflow=outflow_e,
+        num_peds=num_peds,
+        density=density,
+        speed=speed,
+        travel_time=travel_time,
+        link_flow=link_flow,
+        avg_tt=avg_tt,
+        tt_run_sum=run_sum,
+        sending_prev=S,
+        recv_prev=R,
+        virt_dep=virt_dep,
+        virt_arr=virt_arr,
+        virt_dep_cum=st.virt_dep_cum + virt_dep,
+        virt_arr_cum=st.virt_arr_cum + virt_arr,
+    )
+    out = None
+    if record:
+        out = StepOutputs(
+            inflow=inflow_e, outflow=outflow_e, cum_in=cum_in, cum_out=cum_out,
+            num_peds=num_peds, density=density, speed=speed,
+            travel_time=travel_time, link_flow=link_flow, sending=S,
+            receiving=R, back_gate=st.back_gate, sep_width=st.sep_width,
+            virt_dep=virt_dep, virt_arr=virt_arr,
+        )
+    return new_state, out
+
+
+def simulate_batched(scn, ep: EngineParams, states: NetworkState, num_steps: int,
+                     gen: Optional[torch.Generator] = None,
+                     stochastic: bool = False) -> NetworkState:
+    """Lockstep rollout of the batch for ``num_steps`` steps; returns the
+    final state.  The rings of ``states`` are advanced in place."""
+    for _ in range(num_steps):
+        states, _ = step_fn(scn, ep, states, gen, stochastic, record=False)
+    return states
+
+
+def simulate(scn, ep: EngineParams, state: NetworkState, num_steps: int,
+             gen: Optional[torch.Generator] = None, stochastic: bool = False,
+             record: bool = True):
+    """Run ``num_steps`` loading steps (the reference driver loop
+    ``for t in range(1, simulation_steps): network.network_loading(t)``).
+    Returns ``(final_state, outputs)``, the outputs stacked over time into
+    ``[num_steps, B, ...]`` when ``record``, else None."""
+    outs = []
+    for _ in range(num_steps):
+        state, out = step_fn(scn, ep, state, gen, stochastic, record)
+        if record:
+            outs.append(out)
+    if not record:
+        return state, None
+    stacked = StepOutputs(**{
+        name: torch.stack([getattr(o, name) for o in outs])
+        for name in StepOutputs.__dataclass_fields__
+    })
+    return state, stacked
