@@ -2,11 +2,13 @@
 and CUDA.
 
 The port of ``pednstream_tpu`` to an NVIDIA H100, module by module under
-the same names.  It imports ``torch``, numpy, networkx and PyYAML, and
-never JAX.  This slice holds the host-side scenario compiler
-(config, topology, demand, routing tables, scenario, generator), the
-engine's batched fast path (engine, fd, routing.turning_fractions_step)
-and the fused N-curve history-read kernel (ops, csrc/ncurve.cu).
+the same names.  It imports ``torch``, numpy, networkx, PyYAML and (for
+the ``'optimal'`` solve) scipy, and never JAX.  It holds the host-side
+scenario compiler (config, topology, demand, routing tables, scenario,
+generator, lp_solver), the engine's float32 fast path and float64
+exact-parity path (engine, fd, routing), per-replica domain randomization
+(randomize), the RL env core and its PettingZoo wrapper (env) and the
+fused N-curve history-read kernel (ops, csrc/ncurve.cu).
 """
 
 from .config import load_config

@@ -8,14 +8,36 @@ update.  Every state leaf carries a leading replica axis ``B``; ``t`` is a
 Python int shared by the lockstep batch (``NetworkState.t``), so the whole
 batch advances by one call per step.
 
-This slice runs the fast path with the fused history read: the three
-per-link ring lookbacks come from one :func:`ops.fused_history_reads` call
-per step (a CUDA kernel on the card), which the JAX engine reaches with
-``use_pallas=True``.  Stochastic steps draw from an explicit
-``torch.Generator`` in a fixed order: release, activity (skipped when every
-link's activity probability is zero), reverse occupancy, speed noise.  The
-JAX PRNG streams cannot be reproduced, so stochastic runs agree with the
-JAX engine in distribution only.
+The three per-link ring lookbacks come from one
+:func:`ops.fused_history_reads` call per step (a CUDA kernel on the card,
+float32 or float64 by the rings' dtype), which the JAX engine reaches with
+``use_pallas=True``; its float64 instantiation sums the diffusion terms in
+the reference's order, so the exact-parity path goes through it too.
+
+Two modes share the step:
+
+- the fast path (float32 flows, compact routed turning fractions);
+- ``scn.exact_parity`` (float64 flows from ``scn.ftype``): dtype staging
+  exactly where the JAX engine casts, a dense ``[B, N, M, M]`` phi, and
+  every sum of non-integers added left to right in the reference's order
+  (``routing.seq_sum``, ``routing.segment_sum``).  Eager PyTorch forms no
+  fused multiply-add across operations, so the JAX engine's ``_nofma``
+  barriers have no counterpart here; this mode uses no ``addcmul``,
+  ``lerp`` or ``torch.compile``.
+
+The ``"optimal"`` node solve runs the host LP (``lp_solver``) on the dense
+phi, one round trip to the host per step.
+
+Stochastic steps draw from an explicit ``torch.Generator`` in a fixed order:
+release, activity (skipped when every link's activity probability is zero),
+reverse occupancy, speed noise.  ``binomial_mode="exact"`` draws with
+``torch.binomial``, ``"fast"`` with :func:`binom_fast`.  The JAX PRNG
+streams cannot be reproduced, so stochastic runs agree with the JAX engine
+in distribution only.
+
+:class:`EngineParams` may be the scenario's (every leaf unbatched) or drawn
+per replica (every leaf with a leading ``B``, ``randomize``): the step
+indexes the last axes only.
 
 ``step_fn`` updates the ring buffers of the state it is given in place
 (``ring[:, t % H] = x``): the state it returns shares them, and the old
@@ -24,11 +46,12 @@ state must not be stepped again.
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .fd import link_flow_kv, speed_from_density
 from .ops import fused_history_reads
-from .routing import turning_fractions_step
+from .routing import seq_sum, turning_fractions_dense, turning_fractions_step
 from .state import EngineParams, NetworkState, StepOutputs
 from .topology import FD_TYPES
 
@@ -64,16 +87,21 @@ def binom_fast(nf, p, u, z):
     return torch.where(nf <= _FAST_BINOM_EXACT_N, cnt, gauss)
 
 
-def _binom(n, p, gen: Optional[torch.Generator], stochastic: bool):
+def _binom(n, p, gen: Optional[torch.Generator], stochastic: bool, mode: str = "exact"):
     """Binomial with numpy-style truncation of a float ``n``.  Deterministic
-    mode returns the expectation floor(n) * p; stochastic mode draws one
-    uniform, then one normal per element from ``gen`` for :func:`binom_fast`."""
+    mode returns the expectation floor(n) * p.  Stochastic mode draws from
+    ``gen``: ``"exact"`` with ``torch.binomial`` on floor(n) trials,
+    ``"fast"`` one uniform, then one normal per element for
+    :func:`binom_fast` (in float32, as the JAX sampler computes)."""
     nf = torch.floor(torch.clamp(n, min=0.0))
     if not stochastic:
         return nf * p
+    if mode == "exact":
+        pc = torch.clamp(p, 0.0, 1.0).to(nf.dtype).expand_as(nf).contiguous()
+        return torch.binomial(nf, pc, generator=gen)
     u = torch.rand(nf.shape, generator=gen, dtype=_f32, device=nf.device)
     z = torch.randn(nf.shape, generator=gen, dtype=_f32, device=nf.device)
-    return binom_fast(nf, p, u, z)
+    return binom_fast(nf.to(_f32), p.to(_f32), u, z).to(nf.dtype)
 
 
 def _rev(scn, x):
@@ -122,24 +150,26 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t: int, hist,
                    gen, stochastic: bool):
     """Link.cal_sending_flow(t-1) over all links (link.py:216-370).
 
-    Density, congestion and release factors and the diffusion coefficient
-    are float32 as in the reference's state arrays; flows are float32 too
-    in this slice.
+    Dtype staging mirrors the reference's NumPy promotion: density,
+    congestion and release factors and the diffusion coefficient are
+    float32 (the reference's state arrays, link.py:82-97), N-curve and
+    flow arithmetic runs in the flow dtype.
     """
     dt = scn.unit_time
     ts = t - 1
-    num_peds = st.num_peds
-    area = _area(scn, ep, st)
+    num_peds = st.num_peds  # float32
+    area32 = _area(scn, ep, st).to(_f32)
     # get_density(ts): shared bidirectional for a Link (link.py:190-197),
     # the stored own density for a Separator (link.py:427-428)
     shared_density = torch.where(
-        scn.is_separator, st.density, (num_peds + _rev(scn, num_peds)) / area)
+        scn.is_separator, st.density, (num_peds + _rev(scn, num_peds)) / area32)
     early = ts < ep.free_flow_tau  # link.py:267-269
 
     # free-flow / congestion blended N-curve boundary (link.py:274-288)
     kc32 = ep.k_critical.to(_f32)
     cf = torch.clamp((st.density - kc32) / (ep.k_jam - ep.k_critical).to(_f32), 0.0, 1.0)
     boundary_freeflow = torch.clamp(hist["ci"] - st.cum_out, min=0.0)
+    # float32 product widened to the flow dtype + float32 factor times a flow
     boundary = cf * num_peds + (1.0 - cf) * boundary_freeflow
 
     front_gate = _rev(scn, st.back_gate)  # link.py:110-126 cross-coupling
@@ -157,14 +187,15 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t: int, hist,
     # 0.19999999999999996, not 0.2
     w_mix = 0.8
     mixed = torch.floor(torch.minimum(w_mix * diffusion + (1.0 - w_mix) * sending, sending))
-    released = _binom(sending, releasing_prob, gen, stochastic)  # link.py:336-343
+    released = _binom(sending, releasing_prob, gen, stochastic,
+                      scn.binomial_mode)  # link.py:336-343
     s_pos = torch.where(freeflow, torch.where(diffusion > 0, mixed, released), released)
     sending = torch.where(sending > 0, s_pos, sending)
 
     # activity stay (link.py:350-358), skipped when decided zero at build time
     if not scn.act_statically_zero:
         act_p = ep.activity_probability
-        staying = _binom(sending, act_p, gen, stochastic)
+        staying = _binom(sending, act_p, gen, stochastic, scn.binomial_mode)
         sending = torch.where((act_p > 0) & (sending > 1), sending - staying, sending)
 
     # EMA smoothing against the previous sending flow (link.py:362-364)
@@ -183,7 +214,9 @@ def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t: int, S, hist,
     cum_out_at = hist["co"]
     early = (t - hist["tau_shock"]) < 0  # ts + 1 - tau_shockwave < 0
 
-    rev_rand = _binom(_rev(scn, st.num_peds), scn.p_reverse, gen, stochastic)  # link.py:382
+    # the count is cast to the flow dtype first (engine.py:374)
+    rev_rand = _binom(_rev(scn, st.num_peds).to(scn.ftype), scn.p_reverse, gen, stochastic,
+                      scn.binomial_mode)  # link.py:382
     kjam_area = ep.k_jam * area
     b_link = torch.where(
         early, kjam_area - rev_rand,
@@ -205,10 +238,15 @@ def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t: int, S, hist,
                        torch.clamp(rf - _rev(scn, S), min=0.0))
 
 
-def _classic_solve(dem_mat, r_pad):
+def _classic_solve(dem_mat, r_pad, exact: bool = False):
     """'classic' proportional supply allocation (node.py:272-300) over any
-    leading axes: ``dem_mat [..., M, M]``, ``r_pad [..., M]``."""
-    col_sums = dem_mat.sum(dim=-2, keepdim=True)
+    leading axes: ``dem_mat [..., M, M]``, ``r_pad [..., M]``.  ``exact``
+    adds the column sums left to right (the sums of the floored ``g`` are
+    of whole numbers, exact in any order)."""
+    if exact:
+        col_sums = seq_sum(dem_mat, -2).unsqueeze(-2)
+    else:
+        col_sums = dem_mat.sum(dim=-2, keepdim=True)
     share = dem_mat / torch.where(col_sums != 0, col_sums, 1e-5)
     supply = r_pad.unsqueeze(-2) * share
     g = torch.floor(torch.minimum(dem_mat, supply))
@@ -217,28 +255,51 @@ def _classic_solve(dem_mat, r_pad):
     return q_in, q_out
 
 
-def _node_solve(scn, ep: EngineParams, t: int, S, R, phi_c=None):
+def _host_lp(scn, s_pad, r_pad, phi):
+    """The ``"optimal"`` LP solve (node.py:248-271) on the host, replica by
+    replica, as the JAX engine's ``pure_callback`` runs it."""
+    phi = phi.expand(s_pad.shape[:1] + phi.shape[-3:])
+    s_np, r_np, phi_np = (x.cpu().numpy() for x in (s_pad, r_pad, phi))
+    q = [scn.optimal_solver(s_np[b], r_np[b], phi_np[b]) for b in range(s_np.shape[0])]
+    q_in, q_out = (torch.as_tensor(np.stack([qq[i] for qq in q]), device=s_pad.device)
+                   .to(s_pad.dtype) for i in (0, 1))
+    return q_in, q_out
+
+
+def _node_solve(scn, ep: EngineParams, t: int, S, R, phi_c=None, phi=None):
     """Padded merge/diverge over all nodes at once (node.py:164-300).
 
     Gathers per-node sending/receiving vectors ``[B, N, M]`` (with the
-    origin-demand and destination big-M virtual slot 0), solves OneToOne
-    nodes by the crossing rule and the others by the classic allocation on
-    ``phi_base``, re-solves the NR routed nodes on their dynamic
-    ``phi_c [B, NR, M, M]`` and writes those rows over the result, then
-    gathers the flows back to the link axis.
+    origin-demand and destination big-M virtual slot 0) and solves
+    OneToOne nodes by the crossing rule.  The others take the classic
+    allocation, on one of:
+
+    - ``phi [B, N, M, M]``, dense turning fractions (exact-parity mode, with
+      the column sums added in order; the ``"optimal"`` solve sends this
+      phi to the host LP instead);
+    - ``phi_base``, with the NR routed nodes re-solved on their dynamic
+      ``phi_c [B, NR, M, M]`` and written over the result.
+
+    The flows are then gathered back to the link axis.
     """
     B = S.shape[0]
     N, M = scn.n_nodes, scn.max_deg
-    demand_t = ep.demand[:, t - 1]  # node.py:176
+    demand_t = ep.demand[..., t - 1]  # node.py:176; [N] or per replica [B, N]
 
     s_pad = torch.where(scn.in_valid, S[:, scn.in_safe], 0.0)
-    s_pad = torch.where(scn.virt_slot, demand_t[:, None], s_pad)
+    s_pad = torch.where(scn.virt_slot, demand_t[..., None], s_pad)
     s_pad = torch.where(scn.slot_valid, s_pad, 0.0)
     r_pad = torch.where(scn.out_valid, R[:, scn.out_safe], 0.0)
-    r_pad = torch.where(scn.virt_slot, ep.virt_recv[:, None], r_pad)
+    r_pad = torch.where(scn.virt_slot, ep.virt_recv[..., None], r_pad)
     r_pad = torch.where(scn.slot_valid, r_pad, 0.0)
 
-    q_in_reg, q_out_reg = _classic_solve(ep.phi_base * s_pad.unsqueeze(-1), r_pad)
+    if phi is not None and scn.assign_flows_type == "optimal":
+        q_in_reg, q_out_reg = _host_lp(scn, s_pad, r_pad, phi)
+    elif phi is not None:
+        q_in_reg, q_out_reg = _classic_solve(phi * s_pad.unsqueeze(-1), r_pad,
+                                             exact=scn.exact_parity)
+    else:
+        q_in_reg, q_out_reg = _classic_solve(ep.phi_base * s_pad.unsqueeze(-1), r_pad)
     if phi_c is not None:
         ids = scn.routing.routed_ids
         q_in_c, q_out_c = _classic_solve(phi_c * s_pad[:, ids].unsqueeze(-1), r_pad[:, ids])
@@ -269,15 +330,16 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t: int,
     link.py:133-188, Separator variant link.py:430-452).  Writes this
     step's travel time into ``st.tt_ring`` in place."""
     W = scn.avg_tt_window
-    num_peds = st.num_peds + (inflow_e - outflow_e)
-    density = num_peds / _area(scn, ep, st)  # link.py:136
+    num_peds = (st.num_peds.to(scn.ftype) + (inflow_e - outflow_e)).to(_f32)
+    density = num_peds / _area(scn, ep, st).to(_f32)  # float32 division (link.py:136)
 
     k_opp = torch.where(scn.is_separator, 0.0, _rev(scn, density))
     k_eff = density + ep.bi_factor.to(_f32) * k_opp
     v = speed_from_density(k_eff, ep.free_flow_speed, ep.k_critical, ep.k_jam, scn.fd_type)
     if stochastic:
-        noise = torch.randn(v.shape, generator=gen, dtype=_f32, device=v.device)
-        v = torch.where(ep.speed_noise_std > 0, v + noise * ep.speed_noise_std, v)
+        noise = torch.randn(v.shape, generator=gen, dtype=scn.ftype, device=v.device)
+        v = torch.where(ep.speed_noise_std > 0,
+                        (v.to(scn.ftype) + noise * ep.speed_noise_std).to(_f32), v)
     v = torch.clamp(v, min=0.0)
 
     # in the reference's free-flow branch (yperman/greenshields, no noise)
@@ -324,19 +386,29 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     # 1) sending flows from state t-1
     S, shared_density = _sending_flows(scn, ep, st, t, hist, gen, stochastic)
 
-    # 2) dynamic turning fractions of the routed nodes (path_finder.py:717-737)
-    phi_c = None
+    # 2) dynamic turning fractions (path_finder.py:717-737): dense for the
+    #    exact and "optimal" solves, else compact over the routed nodes
+    phi_c = phi = None
+    dense = scn.exact_parity or scn.assign_flows_type == "optimal"
     if scn.routing is not None:
         cap_default = st.back_gate * ep.k_critical * ep.free_flow_speed * scn.unit_time
-        phi_c = turning_fractions_step(
-            scn.routing, scn.max_deg, shared_density, st.recv_prev, cap_default,
-            ep.od_table[:, t])
+        od_flow_t = ep.od_table[..., t]
+        if dense:
+            phi = turning_fractions_dense(
+                scn.routing, scn.n_nodes, scn.max_deg, scn.node_arity, scn.slot_valid,
+                shared_density, st.recv_prev, cap_default, od_flow_t, ep.phi_base)
+        else:
+            phi_c = turning_fractions_step(
+                scn.routing, scn.max_deg, shared_density, st.recv_prev, cap_default,
+                od_flow_t)
+    elif dense:
+        phi = ep.phi_base
 
     # 3) receiving flows (need S of the reverse links)
     R = _receiving_flows(scn, ep, st, t, S, hist, gen, stochastic)
 
     # 4) node merge/diverge and write-back
-    inflow_e, outflow_e, virt_dep, virt_arr = _node_solve(scn, ep, t, S, R, phi_c)
+    inflow_e, outflow_e, virt_dep, virt_arr = _node_solve(scn, ep, t, S, R, phi_c, phi)
 
     # 5) cumulative curves (node.py:146-162), ring rows written in place;
     #    the inflow ring feeds the fused read's diffusion taps

@@ -84,7 +84,7 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(build()["path"])
-    fn = lib.ncurve_fused_history_reads
-    fn.argtypes = [_P] * 10 + [_I] * 3 + [_P]
-    fn.restype = _I
+    for fn in (lib.ncurve_fused_history_reads, lib.ncurve_fused_history_reads_f64):
+        fn.argtypes = [_P] * 10 + [_I] * 3 + [_P]
+        fn.restype = _I
     return lib

@@ -7,13 +7,17 @@ shockwave lookback (link.py:380) and the four lagged inflows of the
 diffusion term (link.py:199-214).  :func:`fused_history_reads` does all
 three in one hand-written CUDA kernel (``csrc/ncurve.cu``) on a CUDA tensor,
 and in :func:`fused_history_reads_ref`, its plain PyTorch version, on a CPU
-tensor.  The two agree bit for bit on the card.
+tensor.  The kernel has a float32 and a float64 instantiation, picked by
+the rings' dtype; both agree with the plain version bit for bit.
 """
 
 import torch
 
 _F32 = torch.float32
 _I32 = torch.int32
+# the kernel's entry point for each ring dtype
+_ENTRY = {torch.float32: "ncurve_fused_history_reads",
+          torch.float64: "ncurve_fused_history_reads_f64"}
 
 
 def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
@@ -25,7 +29,8 @@ def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
     ``ci = cum_in_ring[idx_ci mod H]`` and ``co = cum_out_ring[idx_co mod H]``
     (0 where the index is negative), and
     ``diff = ((t0 + t1) + t2) + t3`` with
-    ``tk = coefs[k] * inflow_ring[(base - k) mod H]`` (0 where base - k < 0).
+    ``tk = coefs[k] * inflow_ring[(base - k) mod H]`` (0 where base - k < 0);
+    float32 coefs times float64 rings widen the coef first.
     """
     def read(ring, idx):
         slot = torch.remainder(idx, H).to(torch.int64)
@@ -44,13 +49,16 @@ def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
 
 def _check(cum_in_ring, cum_out_ring, inflow_ring, idx_ci, idx_co, base, coefs, H):
     dev = cum_in_ring.device
+    ring_dtype = cum_in_ring.dtype
+    if ring_dtype not in _ENTRY:
+        raise TypeError(f"cum_in_ring is {ring_dtype}, expected float32 or float64")
     B, H_ring, E = cum_in_ring.shape
     if H_ring != H:
         raise ValueError(f"rings hold {H_ring} rows, H={H}")
     operands = {
-        "cum_in_ring": (cum_in_ring, _F32, (B, H, E)),
-        "cum_out_ring": (cum_out_ring, _F32, (B, H, E)),
-        "inflow_ring": (inflow_ring, _F32, (B, H, E)),
+        "cum_in_ring": (cum_in_ring, ring_dtype, (B, H, E)),
+        "cum_out_ring": (cum_out_ring, ring_dtype, (B, H, E)),
+        "inflow_ring": (inflow_ring, ring_dtype, (B, H, E)),
         "idx_ci": (idx_ci, _I32, (B, E)),
         "idx_co": (idx_co, _I32, (B, E)),
         "base": (base, _I32, (B, E)),
@@ -71,10 +79,10 @@ def _launch(cum_in_ring, cum_out_ring, inflow_ring, idx_ci, idx_co, base, coefs,
     from ._build import library
 
     B, _, E = cum_in_ring.shape
-    dev = cum_in_ring.device
-    ci, co, diff = (torch.empty((B, E), dtype=_F32, device=dev) for _ in range(3))
+    dev, dtype = cum_in_ring.device, cum_in_ring.dtype
+    ci, co, diff = (torch.empty((B, E), dtype=dtype, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
-        err = library().ncurve_fused_history_reads(
+        err = getattr(library(), _ENTRY[dtype])(
             cum_in_ring.data_ptr(), cum_out_ring.data_ptr(), inflow_ring.data_ptr(),
             idx_ci.data_ptr(), idx_co.data_ptr(), base.data_ptr(), coefs.data_ptr(),
             ci.data_ptr(), co.data_ptr(), diff.data_ptr(), B, H, E,
@@ -82,7 +90,7 @@ def _launch(cum_in_ring, cum_out_ring, inflow_ring, idx_ci, idx_co, base, coefs,
         )
     if err != 0:
         raise RuntimeError(f"fused_history_reads launch failed: CUDA error {err}")
-    fused_history_reads.launches += 1
+    fused_history_reads.launches[str(dtype).removeprefix("torch.")] += 1
     return ci, co, diff
 
 
@@ -90,18 +98,19 @@ def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring,
                         idx_ci, idx_co, base, coefs, H: int):
     """All three per-step history reads in one pass.
 
-    Rings are float32 ``[B, H, E]``; ``idx_ci``, ``idx_co`` and ``base`` are
-    int32 ``[B, E]``; ``coefs`` is float32 ``[B, 4, E]``; all contiguous and
-    on one device.  An unbatched call (``[H, E]`` rings, ``[E]`` indices,
-    ``[4, E]`` coefs) is promoted to ``B = 1`` and its results squeezed.
-    Returns ``(ci, co, diff)``, each ``[B, E]``, as
-    :func:`fused_history_reads_ref` defines them.
+    Rings are ``[B, H, E]``, all float32 or all float64; ``idx_ci``,
+    ``idx_co`` and ``base`` are int32 ``[B, E]``; ``coefs`` is float32
+    ``[B, 4, E]``; all contiguous and on one device.  An unbatched call
+    (``[H, E]`` rings, ``[E]`` indices, ``[4, E]`` coefs) is promoted to
+    ``B = 1`` and its results squeezed.  Returns ``(ci, co, diff)``, each
+    ``[B, E]`` in the rings' dtype, as :func:`fused_history_reads_ref`
+    defines them.
 
-    On a CUDA tensor this launches the kernel of ``csrc/ncurve.cu`` (built
-    at first use) and counts the launch in ``fused_history_reads.launches``;
-    a failed launch raises.  On a CPU tensor it runs
-    :func:`fused_history_reads_ref`.  Any other device, dtype, shape or a
-    non-contiguous operand raises.
+    On a CUDA tensor this launches the kernel of ``csrc/ncurve.cu`` for the
+    rings' dtype (built at first use) and counts the launch in
+    ``fused_history_reads.launches[dtype name]``; a failed launch raises.
+    On a CPU tensor it runs :func:`fused_history_reads_ref`.  Any other
+    device, dtype, shape or a non-contiguous operand raises.
     """
     args = [cum_in_ring, cum_out_ring, inflow_ring, idx_ci, idx_co, base, coefs]
     unbatched = cum_in_ring.dim() == 2
@@ -118,4 +127,5 @@ def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring,
     return tuple(o[0] for o in out) if unbatched else out
 
 
-fused_history_reads.launches = 0
+# kernel launches per ring dtype
+fused_history_reads.launches = {"float32": 0, "float64": 0}

@@ -229,7 +229,7 @@ class RoutingTables(_Tensors):
     te_phi_c: torch.Tensor  # [K] compact phi slot r*M*M + up*M + down
     phi_c_members: torch.Tensor  # [NR*M*M, Lp] turn entries of each slot
 
-    # static float32 per-step constants
+    # static per-step constants in the flow dtype
     dist_util: torch.Tensor  # [K] alpha * te_dist / (group_dist_sum + 1e-6)
     uo_inv_count: torch.Tensor  # [U] 1 / entries of the entry's group
     offdiag_uniform: torch.Tensor  # [NR, M, M] guard fallback 1/(arity-1)
@@ -257,6 +257,7 @@ def build_routing_tables(
     topo: TopologySpec,
     builder: PathSetBuilder,
     od_pairs: List[Tuple[int, int]],
+    ftype=torch.float32,
     device="cpu",
 ) -> Optional[RoutingTables]:
     """Compile turn tables from enumerated paths.
@@ -358,16 +359,16 @@ def build_routing_tables(
         [node_to_c[int(p // (M * M))] * M * M + int(p % (M * M)) for p in te_phi_idx],
         dtype=np.int64)
 
-    # static float32 pieces of the logit utility and the guard, staged as
-    # the JAX step stages them (every operand cast to f32 first)
-    f32 = np.float32
-    dist_util = (f32(builder.alpha) * te_dist.astype(f32)
-                 / (group_dist_sum[te_group].astype(f32) + f32(1e-6)))
-    uo_inv_count = f32(1.0) / uo_group_count[uo_group].astype(f32)
+    # static pieces of the logit utility and the guard in the flow dtype,
+    # staged as the JAX step stages them (every operand cast to it first)
+    fd = {torch.float32: np.float32, torch.float64: np.float64}[ftype]
+    dist_util = (fd(builder.alpha) * te_dist.astype(fd)
+                 / (group_dist_sum[te_group].astype(fd) + fd(1e-6)))
+    uo_inv_count = fd(1.0) / uo_group_count[uo_group].astype(fd)
     sv = topo.slot_valid[routed_ids]
     offdiag = sv[:, :, None] & sv[:, None, :] & ~np.eye(M, dtype=bool)[None]
-    inv = f32(1.0) / np.maximum(topo.node_arity[routed_ids].astype(f32) - f32(1.0), f32(1.0))
-    offdiag_uniform = np.where(offdiag, inv[:, None, None], f32(0.0)).astype(f32)
+    inv = fd(1.0) / np.maximum(topo.node_arity[routed_ids].astype(fd) - fd(1.0), fd(1.0))
+    offdiag_uniform = np.where(offdiag, inv[:, None, None], fd(0.0)).astype(fd)
 
     t = lambda a: torch.as_tensor(a, device=device)
     return RoutingTables(
@@ -415,47 +416,68 @@ def segment_sum(vals: torch.Tensor, members: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` added left to right, ``((x0 + x1) + x2) + ...``: the
+    order of the reference's NumPy sums over these short axes, on every
+    device (``torch.sum`` fixes no order)."""
+    parts = x.unbind(dim)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _turn_contributions(rt: RoutingTables, density_for_routing, recv_prev, cap_default,
+                        od_flow_t):
+    """Per turn entry ``P(down | up, od) * P(od | up)`` ``[B, K]`` in the
+    tables' flow dtype ``f`` (path_finder.py:561-689).  Dtype staging
+    mirrors path_finder.py:561-589: densities are float32 state and
+    ``beta * norm_densities`` stays float32; the rest is in ``f``."""
+    f = rt.dist_util.dtype
+    # P(od | up): od-flow-weighted shares per (node, up) group
+    # (path_finder.py:599-615); od_flow_t is [P] or per replica [B, P]
+    w = od_flow_t[..., rt.uo_od].to(f)
+    tot_g = segment_sum(w, rt.uo_group_members)[..., rt.uo_group]
+    p_uo = torch.where(tot_g > 0, w / torch.where(tot_g > 0, tot_g, 1.0), rt.uo_inv_count)
+
+    # P(down | up, od): logit over candidate turns (path_finder.py:561-589)
+    ld = rt.te_down_link
+    safe = ld.clamp(min=0)
+    real = ld >= 0
+    dens = torch.where(real, density_for_routing[:, safe].to(torch.float32), 0.0)
+    rp = recv_prev[:, safe]
+    cap = torch.where(real, torch.where(rp >= 0, rp, cap_default[:, safe]), 100.0).to(f)
+    norm_d = torch.clamp(dens - 2.0, min=0.0) / (10.0 - 2.0)  # :581
+    cap_sum = segment_sum(cap, rt.group_members)
+    util = ((rt.dist_util + (rt.beta * norm_d).to(f))
+            - rt.omega * cap / (cap_sum[:, rt.te_group] + 1e-6))
+    z = torch.exp(-rt.temp * util)
+    p_turn = z / segment_sum(z, rt.group_members)[:, rt.te_group]
+    return p_turn * p_uo[..., rt.te_uo_idx]
+
+
 def turning_fractions_step(
     rt: RoutingTables,
     max_deg: int,
     density_for_routing: torch.Tensor,  # [B, E] link.get_density(t-1), f32
     recv_prev: torch.Tensor,  # [B, E] receiving_flow[t-2], -1 sentinel if unset
     cap_default: torch.Tensor,  # [B, E] back_gate * k_c * v_f * dt
-    od_flow_t: torch.Tensor,  # [P] od flows at time t
+    od_flow_t: torch.Tensor,  # [P] or [B, P] od flows at time t
 ) -> torch.Tensor:
     """Compact turning fractions ``phi_c[B, NR, M, M]`` of the routed
     nodes (``routed_ids``), after the row-normalization guard.
 
     The fast path of ``pednstream_tpu.routing.turning_fractions_step``
-    (``exact=False, compact=True``): P(down|up,od) by a logit over the
-    candidate turns of each (node, od, up) group, times the od-flow share
-    P(od|up), summed into phi slots (path_finder.py:561-715).  The caller
-    (``engine._node_solve``) re-solves just these rows; the other nodes
-    keep ``phi_base``.
+    (``exact=False, compact=True``), in the tables' flow dtype:
+    P(down|up,od) by a logit over the candidate turns of each (node, od,
+    up) group, times the od-flow share P(od|up), summed into phi slots
+    (path_finder.py:561-715).
+    The caller (``engine._node_solve``) re-solves just these rows; the
+    other nodes keep ``phi_base``.
     """
     M = max_deg
-    # P(od | up): od-flow-weighted shares per (node, up) group
-    # (path_finder.py:599-615); od flows are per-scenario, so unbatched
-    w = od_flow_t[rt.uo_od]
-    tot_g = segment_sum(w, rt.uo_group_members)[rt.uo_group]
-    p_uo = torch.where(tot_g > 0, w / torch.where(tot_g > 0, tot_g, 1.0),
-                       rt.uo_inv_count)
-
-    # P(down | up, od): logit over candidate turns (path_finder.py:561-589)
-    ld = rt.te_down_link
-    safe = ld.clamp(min=0)
-    real = ld >= 0
-    dens = torch.where(real, density_for_routing[:, safe], 0.0)
-    rp = recv_prev[:, safe]
-    cap = torch.where(real, torch.where(rp >= 0, rp, cap_default[:, safe]), 100.0)
-    norm_d = torch.clamp(dens - 2.0, min=0.0) / (10.0 - 2.0)  # :581
-    cap_sum = segment_sum(cap, rt.group_members)
-    util = ((rt.dist_util + rt.beta * norm_d)
-            - rt.omega * cap / (cap_sum[:, rt.te_group] + 1e-6))
-    z = torch.exp(-rt.temp * util)
-    p_turn = z / segment_sum(z, rt.group_members)[:, rt.te_group]
-    contrib = p_turn * p_uo[rt.te_uo_idx]
-
+    contrib = _turn_contributions(rt, density_for_routing, recv_prev, cap_default,
+                                  od_flow_t)
     B = contrib.shape[0]
     phi = segment_sum(contrib, rt.phi_c_members).reshape(B, rt.num_routed, M, M)
 
@@ -466,3 +488,48 @@ def turning_fractions_step(
     phi_norm = phi / torch.where(pos, rowsum, 1.0)
     return torch.where(need_fix & pos, phi_norm,
                        torch.where(need_fix & ~pos, rt.offdiag_uniform, phi))
+
+
+def turning_fractions_dense(
+    rt: RoutingTables,
+    n_nodes: int,
+    max_deg: int,
+    node_arity: torch.Tensor,  # [N]
+    slot_valid: torch.Tensor,  # [N, M]
+    density_for_routing: torch.Tensor,  # [B, E] f32
+    recv_prev: torch.Tensor,  # [B, E] in the flow dtype, -1 sentinel if unset
+    cap_default: torch.Tensor,  # [B, E] in the flow dtype
+    od_flow_t: torch.Tensor,  # [P] or [B, P]
+    phi_base: torch.Tensor,  # [N, M, M] or [B, N, M, M] in the flow dtype
+) -> torch.Tensor:
+    """Dense turning fractions ``phi[B, N, M, M]`` in the dtype of
+    ``phi_base``: the exact path of ``pednstream_tpu.routing.
+    turning_fractions_step`` (``exact=True``), which the exact-parity mode
+    and the ``"optimal"`` solve take.
+
+    Every sum is added left to right in the reference's order: the
+    segment sums in entry order, the guard's row sums along the slots.
+    The guard runs over all nodes; the non-routed ones then keep
+    ``phi_base``.
+    """
+    f = phi_base.dtype
+    N, M = n_nodes, max_deg
+    contrib = _turn_contributions(rt, density_for_routing, recv_prev, cap_default,
+                                  od_flow_t)
+    B = contrib.shape[0]
+    phi = torch.zeros((B, N, M, M), dtype=f, device=contrib.device)
+    phi[:, rt.routed_ids] = segment_sum(contrib, rt.phi_c_members).reshape(
+        B, rt.num_routed, M, M)
+
+    # row-normalization guard (check_fractions, path_finder.py:691-715)
+    eye = torch.eye(M, dtype=torch.bool, device=phi.device)
+    offdiag_valid = slot_valid[:, :, None] & slot_valid[:, None, :] & ~eye
+    inv = 1.0 / torch.clamp(node_arity.to(f) - 1.0, min=1.0)
+    uniform = torch.where(offdiag_valid, inv[:, None, None], 0.0)
+    rowsum = seq_sum(phi, -1).unsqueeze(-1)
+    need_fix = torch.abs(rowsum - 1.0) > 1e-3
+    pos = rowsum > 1e-6
+    phi_norm = phi / torch.where(pos, rowsum, 1.0)
+    fixed = torch.where(need_fix & pos, phi_norm,
+                        torch.where(need_fix & ~pos, uniform, phi))
+    return torch.where(rt.routed_mask[:, None, None], fixed, phi_base)

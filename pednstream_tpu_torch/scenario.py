@@ -9,13 +9,15 @@ tables on one ``device``.  Decisions that the JAX engine takes at trace
 time from concrete NumPy constants are taken here once, at build time,
 from the same host arrays, so the step never reads a device value back.
 
-This slice supports the batched stochastic fast path: float32 flows,
-windowed or full-horizon rings, ``binomial_mode="fast"``, the classic node
-solve.  ``exact_parity``, ``binomial_mode="exact"``, the ``"optimal"``
-solve and ``od_candidates`` raise ``NotImplementedError``.
+Flows run in ``ftype``: float32 (the batched fast path) or float64 with
+``exact_parity=True`` (the anchor that reproduces the reference's golden
+trajectories).  Both binomial samplers (``"exact"``, the default, and
+``"fast"``), both node solves (``"classic"`` and the host LP
+``"optimal"``) and the ``od_candidates`` superset build for in-batch OD
+randomization are supported.
 """
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,39 +27,47 @@ from .routing import PathSetBuilder, RoutingTables, build_routing_tables
 from .state import EngineParams, NetworkState
 from .topology import TopologySpec, build_topology, parse_controllers
 
-FTYPE = torch.float32
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def derive_link_constants(length, free_flow_speed, k_critical, k_jam, unit_time):
+def derive_link_constants(length, free_flow_speed, k_critical, k_jam, unit_time) -> dict:
     """Per-link constants derived from the physical parameters
-    (link.py:61-91), in NumPy from float64 inputs as the reference does."""
+    (link.py:61-91), on tensors of any leading shape.  At build time the
+    inputs are the float64 link parameters, as in the reference; under
+    per-replica randomization (``randomize``) they are the perturbed
+    parameters in their own dtype, as in the JAX package."""
+    f32 = torch.float32
     max_tt = length / 0.05  # jam travel-time clamp (link.py:63)
-    tt0 = np.minimum(length / free_flow_speed, max_tt)  # link.py:83
+    tt0 = torch.minimum(length / free_flow_speed, max_tt)  # link.py:83
     capacity = free_flow_speed * k_critical
     shockwave = capacity / (k_jam - k_critical)  # link.py:61
-    fftau = np.round(tt0.astype(np.float32) / unit_time).astype(np.int32)
-    tau_shock = np.round(length / (shockwave * unit_time)).astype(np.int32)
     return {
-        "max_travel_time": max_tt.astype(np.float32),
-        "travel_time0": tt0.astype(np.float32),
+        "max_travel_time": max_tt.to(f32),
+        "travel_time0": tt0.to(f32),
         # free-flow travel time divided BEFORE the f32 cast: in the
         # reference's free-flow FD branch the speed stays a Python float
         # (functions.py:120-121), so length/speed divides in f64
-        "tt_freeflow32": (length / free_flow_speed).astype(np.float32),
-        "free_flow_tau": fftau,
-        "tau_shockwave": tau_shock,
+        "tt_freeflow32": (length / free_flow_speed).to(f32),
+        "free_flow_tau": torch.round(tt0.to(f32) / unit_time).to(torch.int32),
+        "tau_shockwave": torch.round(length / (shockwave * unit_time)).to(torch.int32),
     }
 
 
-def _build_phi_base(topo: TopologySpec) -> np.ndarray:
+def _link_constants(lp, unit_time) -> dict:
+    """``derive_link_constants`` of the float64 link parameters."""
+    return derive_link_constants(*(torch.from_numpy(np.asarray(x, dtype=np.float64)) for x in (
+        lp.length, lp.free_flow_speed, lp.k_critical, lp.k_jam)), unit_time)
+
+
+def _build_phi_base(topo: TopologySpec, ftype) -> np.ndarray:
     """Equal turning fractions 1/(dest_num-1) off-diagonal
-    (network.py:269-271)."""
+    (network.py:269-271), in the flow dtype."""
     M = topo.max_deg
     eye = np.eye(M, dtype=bool)
     valid = topo.slot_valid[:, :, None] & topo.slot_valid[:, None, :] & ~eye[None]
     m = topo.node_arity.astype(np.float64)
     inv = 1.0 / np.maximum(m - 1.0, 1.0)
-    return np.where(valid, inv[:, None, None], 0.0).astype(np.float32)
+    return np.where(valid, inv[:, None, None], 0.0).astype(_NP[ftype])
 
 
 class Scenario:
@@ -76,11 +86,16 @@ class Scenario:
         od_manager: Optional[ODManager],
         device,
         pos: Optional[dict] = None,
+        ftype=torch.float32,
+        exact_parity: bool = False,
         history_window: Optional[int] = None,
-        binomial_mode: str = "fast",
+        binomial_mode: str = "exact",
         track_inflow_ring: bool = True,
     ):
+        if binomial_mode not in ("exact", "fast"):
+            raise ValueError(f"binomial_mode must be 'exact' or 'fast', got {binomial_mode!r}")
         self.device = torch.device(device)
+        self.exact_parity = exact_parity
         self.history_window = history_window
         self.binomial_mode = binomial_mode
         # Accepted for the JAX signature.  The port always maintains the
@@ -93,7 +108,7 @@ class Scenario:
         self.origin_nodes = list(origin_nodes)
         self.destination_nodes = list(destination_nodes or [])
         self.pos = pos
-        self.ftype = FTYPE
+        self.ftype = ftype
         self.path_builder = path_builder
         self.od_manager = od_manager
         self.routing = routing
@@ -136,12 +151,12 @@ class Scenario:
         # write-back gathers into the flattened [N*M] node-slot axis
         self.end_flat = self.end_node * M + self.end_slot
         self.start_flat = self.start_node * M + self.start_slot
-        # reverse-occupancy thinning probability (link.py:382), staged as
-        # a float32 tensor like JAX's weak-typed 0.9
-        self.p_reverse = torch.tensor(0.9, dtype=FTYPE, device=self.device)
+        # reverse-occupancy thinning probability (link.py:382) in the flow
+        # dtype: JAX's weak-typed 0.9 takes the dtype of the float-cast
+        # pedestrian count it multiplies (engine.py:374,414)
+        self.p_reverse = torch.tensor(0.9, dtype=ftype, device=self.device)
 
-        derived = derive_link_constants(
-            lp.length, lp.free_flow_speed, lp.k_critical, lp.k_jam, self.unit_time)
+        derived = _link_constants(lp, self.unit_time)
         self.travel_time0 = dev(derived["travel_time0"])
         self.tau_shockwave = dev(derived["tau_shockwave"])
 
@@ -162,14 +177,27 @@ class Scenario:
 
         self.engine_params = engine_params
 
+        self.optimal_solver = None
+        if self.assign_flows_type == "optimal":
+            from .lp_solver import OptimalNodeSolver
+
+            self.optimal_solver = OptimalNodeSolver(topo)
+        # set by build_scenario for an od_candidates build (see there)
+        self.od_randomizable = False
+
     def init_state(self, batch: int = 1, device=None) -> NetworkState:
-        """Initial state of ``batch`` identical replicas (scenario.py:174-214)."""
+        """Initial state of ``batch`` identical replicas (scenario.py:174-214).
+
+        Flows, cumulative curves, rings, the previous sending/receiving
+        flows, gates and virtual counters are in ``ftype``; pedestrian
+        counts, densities, speeds and travel times are float32."""
         device = self.device if device is None else torch.device(device)
-        f = FTYPE
+        f = self.ftype
+        f32 = torch.float32
         E, N, H, W, B = self.n_links, self.n_nodes, self.H, self.avg_tt_window, batch
 
-        def zeros(*shape):
-            return torch.zeros((B,) + shape, dtype=f, device=device)
+        def zeros(*shape, dtype=f):
+            return torch.zeros((B,) + shape, dtype=dtype, device=device)
 
         def per_link(x):
             return x.to(device).expand(B, E).clone()
@@ -188,11 +216,11 @@ class Scenario:
             cum_out=zeros(E),
             inflow=zeros(E),
             outflow=zeros(E),
-            num_peds=zeros(E),
-            density=zeros(E),
-            speed=zeros(E),
+            num_peds=zeros(E, dtype=f32),
+            density=zeros(E, dtype=f32),
+            speed=zeros(E, dtype=f32),
             travel_time=per_link(tt0),
-            link_flow=zeros(E),
+            link_flow=zeros(E, dtype=f32),
             avg_tt=per_link(tt0),
             tt_run_sum=per_link(tt0),
             sending_prev=-torch.ones((B, E), dtype=f, device=device),
@@ -214,37 +242,52 @@ def build_scenario(
     od_flows: Optional[dict] = None,
     demand_pattern: Optional[List[Callable]] = None,
     pos: Optional[dict] = None,
+    ftype=torch.float32,
     exact_parity: bool = False,
     history_window: Optional[int] = None,
-    binomial_mode: str = "fast",
+    binomial_mode: str = "exact",
     track_inflow_ring: bool = True,
-    od_candidates=None,
+    od_candidates: Optional[Tuple[List[int], List[int]]] = None,
     device="cpu",
 ) -> Scenario:
     """Compile a scenario (reference Network.__init__, network.py:56-121).
 
-    The arguments are those of ``pednstream_tpu.build_scenario`` that this
-    slice supports, plus ``device``.  demand_pattern: optional list of
+    The arguments are those of ``pednstream_tpu.build_scenario`` less its
+    Pallas switches, plus ``device``.  demand_pattern: optional list of
     custom demand callables registered by __name__ (network.py:88-93).
+
+    od_candidates: optional ``(candidate_origins, candidate_destinations)``.
+    Topology, demand curves and routing tables are then built over the
+    union of nominal and candidate OD nodes, with the candidates closed
+    (zero demand row, zero od_table rows, zero virtual receiving) until
+    :mod:`~pednstream_tpu_torch.randomize` opens them per replica.
     """
-    if exact_parity:
-        raise NotImplementedError("exact_parity is not ported yet")
-    if binomial_mode != "fast":
-        raise NotImplementedError(f"binomial_mode={binomial_mode!r} is not ported yet")
-    if od_candidates is not None:
-        raise NotImplementedError("od_candidates is not ported yet")
-    if params.get("assign_flows_type", "classic") != "classic":
-        raise NotImplementedError(
-            f"assign_flows_type={params['assign_flows_type']!r} is not ported yet")
-
+    if ftype not in _NP:
+        raise TypeError(f"ftype must be torch.float32 or torch.float64, got {ftype}")
     destination_nodes = list(destination_nodes or [])
-    topo = build_topology(adjacency_matrix, params, list(origin_nodes), destination_nodes)
+    cand_origins: List[int] = []
+    cand_dests: List[int] = []
+    if od_candidates is not None:
+        cand_origins = [n for n in od_candidates[0] if n not in origin_nodes]
+        cand_dests = [n for n in od_candidates[1] if n not in destination_nodes]
+    origins_eff = list(origin_nodes) + cand_origins
+    dests_eff = destination_nodes + cand_dests
+    topo = build_topology(adjacency_matrix, params, origins_eff, dests_eff)
 
-    # demand curves, generated in node-creation order for RNG parity
+    # demand curves, generated in node-creation order for RNG parity;
+    # candidate origins draw from a separate seeded pass so the nominal
+    # origins' curves stay those of the plain build
     T = int(params["simulation_steps"])
     virtual_nodes = [n for n in topo.node_creation_order if topo.has_virtual[n]]
     custom = {f.__name__: f for f in (demand_pattern or [])}
     demands = build_demand_table(T, params, list(origin_nodes), virtual_nodes, custom)
+    if cand_origins:
+        params_cand = dict(params)
+        params_cand["seed"] = int(params.get("seed") or 0) + 10007
+        demands_cand = build_demand_table(T, params_cand, cand_origins, virtual_nodes, custom)
+        for node_id in cand_origins:
+            if node_id in demands_cand:
+                demands[node_id] = demands_cand[node_id]
     demand_table = np.zeros((topo.n_nodes, T + 1), dtype=np.float64)
     for node_id, arr in demands.items():
         demand_table[node_id, : len(arr)] = arr[: T + 1]
@@ -252,25 +295,41 @@ def build_scenario(
     od_manager = None
     routing = None
     builder = None
+    od_pairs: List[Tuple[int, int]] = []
     od_table = np.zeros((0, T + 1), dtype=np.float64)
-    if destination_nodes:
+    if dests_eff:
         od_manager = ODManager(T)
-        od_manager.init_od_flows(list(origin_nodes), destination_nodes, od_flows)
+        od_manager.init_od_flows(origins_eff, dests_eff, od_flows)
         od_pairs, od_table = od_manager.dense_table()
 
         _, controller_nodes, _, controller_links = parse_controllers(params)
         builder = PathSetBuilder(topo, params, controller_nodes, controller_links)
         builder.find_od_paths(od_pairs)
-        routing = build_routing_tables(topo, builder, od_pairs, device=device)
+        routing = build_routing_tables(topo, builder, od_pairs, ftype, device)
 
     lp = topo.link_params
-    derived = derive_link_constants(
-        lp.length, lp.free_flow_speed, lp.k_critical, lp.k_jam, float(params["unit_time"]))
-    # every virtual-link node keeps its big-M slot (node.py:187)
-    virt_recv = np.where(np.asarray(topo.has_virtual), 1e6, 0.0)
+    derived = _link_constants(lp, float(params["unit_time"]))
 
-    def dev(a, dtype=FTYPE):
-        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    # nominal OD activation: candidates start closed
+    N = topo.n_nodes
+    nominal_o = np.zeros(N, dtype=bool)
+    nominal_o[list(origin_nodes)] = True
+    nominal_d = np.zeros(N, dtype=bool)
+    nominal_d[destination_nodes] = True
+    od_po = np.asarray([p[0] for p in od_pairs], dtype=np.int64)
+    od_pd = np.asarray([p[1] for p in od_pairs], dtype=np.int64)
+    if od_candidates is None:
+        # plain build: every virtual-link node keeps its big-M slot (node.py:187)
+        virt_recv = np.where(np.asarray(topo.has_virtual), 1e6, 0.0)
+        demand_nominal = demand_table
+        od_table_nominal = od_table
+    else:
+        virt_recv = np.where(np.asarray(topo.has_virtual) & (nominal_o | nominal_d), 1e6, 0.0)
+        demand_nominal = demand_table * nominal_o[:, None]
+        od_table_nominal = od_table * (nominal_o[od_po] & nominal_d[od_pd])[:, None]
+
+    def dev(a, dtype=ftype):
+        return torch.as_tensor(a, device=device).to(dtype)
 
     ep = EngineParams(
         length=dev(lp.length),
@@ -282,18 +341,18 @@ def build_scenario(
         bi_factor=dev(lp.bi_factor),
         activity_probability=dev(lp.activity_probability),
         speed_noise_std=dev(lp.speed_noise_std),
-        demand=dev(demand_table),
-        od_table=dev(od_table),
-        phi_base=dev(_build_phi_base(topo)),
+        demand=dev(demand_nominal),
+        od_table=dev(od_table_nominal),
+        phi_base=dev(_build_phi_base(topo, ftype)),
         virt_recv=dev(virt_recv),
-        max_travel_time=dev(derived["max_travel_time"]),
-        travel_time0=dev(derived["travel_time0"]),
-        tt_freeflow32=dev(derived["tt_freeflow32"]),
+        max_travel_time=dev(derived["max_travel_time"], torch.float32),
+        travel_time0=dev(derived["travel_time0"], torch.float32),
+        tt_freeflow32=dev(derived["tt_freeflow32"], torch.float32),
         free_flow_tau=dev(derived["free_flow_tau"], torch.int32),
         tau_shockwave=dev(derived["tau_shockwave"], torch.int32),
     )
 
-    return Scenario(
+    scn = Scenario(
         topo=topo,
         params=params,
         origin_nodes=list(origin_nodes),
@@ -304,7 +363,26 @@ def build_scenario(
         od_manager=od_manager,
         device=device,
         pos=pos,
+        ftype=ftype,
+        exact_parity=exact_parity,
         history_window=history_window,
         binomial_mode=binomial_mode,
         track_inflow_ring=track_inflow_ring,
     )
+    # OD randomization metadata, host arrays as in the JAX package
+    # (read by randomize.py)
+    scn.od_randomizable = od_candidates is not None
+    if scn.od_randomizable:
+        cand_o_mask = np.zeros(N, dtype=bool)
+        cand_o_mask[cand_origins] = True
+        cand_d_mask = np.zeros(N, dtype=bool)
+        cand_d_mask[cand_dests] = True
+        scn.nominal_origin_mask = nominal_o
+        scn.nominal_dest_mask = nominal_d
+        scn.candidate_origin_mask = cand_o_mask
+        scn.candidate_dest_mask = cand_d_mask
+        scn.demand_full = demand_table
+        scn.od_pair_origin = od_po
+        scn.od_pair_dest = od_pd
+        scn.od_table_full = od_table
+    return scn

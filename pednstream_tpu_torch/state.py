@@ -4,7 +4,7 @@ of tensors (the counterparts of ``pednstream_tpu/state.py``).
 Layouts follow the JAX package so the two can be compared leaf for leaf,
 with one addition: every :class:`NetworkState` and :class:`StepOutputs`
 leaf carries a leading replica axis ``B`` (JAX adds it with ``vmap``).
-:class:`EngineParams` stays unbatched and broadcasts over ``B``.
+:class:`EngineParams` broadcasts over ``B`` (or carries it, see below).
 
 - rings are time-major ``[B, H, E]`` (time index i lives at row ``i % H``);
   the travel-time ring is ``[B, W, E]``;
@@ -13,10 +13,15 @@ leaf carries a leading replica axis ``B`` (JAX adds it with ``vmap``).
   writes and demand-column reads index with a host integer and never read
   a device value back.
 
-Flow quantities are float32 (the port runs the fast path only); travel
-times, densities, speeds and pedestrian counts are float32 as in the
-reference's arrays (link.py:82-97).  There is no PRNG key leaf: stochastic
-steps take an explicit ``torch.Generator``.
+Flow quantities (flows, cumulative curves, rings, previous sending and
+receiving flows, gates, virtual counters) are in the scenario's
+``ftype``: float32 on the fast path, float64 on the exact-parity path.
+Travel times, densities, speeds and pedestrian counts are float32 as in
+the reference's arrays (link.py:82-97), the split of
+``pednstream_tpu/scenario.py:174-214``.  :class:`EngineParams` leaves are
+unbatched for the scenario's own parameters and carry a leading ``B``
+when drawn per replica (``randomize``).  There is no PRNG key leaf:
+stochastic steps take an explicit ``torch.Generator``.
 """
 
 import dataclasses

@@ -1,18 +1,24 @@
-"""The port on the card: the CUDA kernel of fused_history_reads against its
-plain version, and engine rollouts on cuda against the CPU.  Every test
-here needs a GPU, skips without one, and is marked ``slow``, so the
-default tiers leave it out.  The file imports no JAX (nor does it need
-tests/conftest.py), so on a machine with a card it runs as
+"""The port on the card: the CUDA kernels of fused_history_reads (float32
+and float64) against their plain version, engine rollouts on cuda against
+the CPU, a golden fixture in exact-parity mode and a short randomized env
+episode.  Every test here needs a GPU, skips without one, and is marked
+``slow``, so the default tiers leave it out.  The file imports no JAX (nor
+does it need tests/conftest.py), so on a machine with a card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider -m slow tests/test_torch_cuda.py
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, simulate
+from pednstream_tpu_torch.env import PedNetParallelEnv
+from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
 from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_ref
+from pednstream_tpu_torch.randomize import randomize_engine_params_batched
 
 pytestmark = pytest.mark.slow
 
@@ -24,23 +30,41 @@ def cuda():
     return torch.device("cuda")
 
 
-def make_inputs(B, H, E, seed, device):
+def make_inputs(B, H, E, seed, device, ring_dtype=np.float32):
     rng = np.random.default_rng(seed)
-    rings = [rng.uniform(0, 100, (B, H, E)).astype(np.float32) for _ in range(3)]
+    rings = [rng.uniform(0, 100, (B, H, E)).astype(ring_dtype) for _ in range(3)]
     idx = [rng.integers(-5, 3 * H, (B, E)).astype(np.int32) for _ in range(3)]
     coefs = rng.uniform(0, 1, (B, 4, E)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in rings + idx + [coefs]]
 
 
-@pytest.mark.parametrize("B,H,E", [(1, 16, 1), (5, 17, 1000), (2, 64, 4097), (1024, 16, 938)])
+# the last two: the main path's melbourne shape, the env episode's
+# 45_intersections shape (256 replicas, full-horizon rings, 168 links)
+@pytest.mark.parametrize("B,H,E", [(1, 16, 1), (5, 17, 1000), (2, 64, 4097), (1024, 16, 938),
+                                   (256, 701, 168)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
     args = make_inputs(B, H, E, seed=B + H + E, device=cuda)
-    before = fused_history_reads.launches
+    before = fused_history_reads.launches["float32"]
     got = fused_history_reads(*args, H)
     want = fused_history_reads_ref(*args, H)
     torch.cuda.synchronize()
-    assert fused_history_reads.launches == before + 1
+    assert fused_history_reads.launches["float32"] == before + 1
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,E", [(1, 201, 938), (3, 40, 70), (2, 601, 4097)])
+def test_float64_kernel_equals_plain_bitwise(cuda, B, H, E):
+    """The float64 instantiation (the exact path's full-horizon rings)
+    against the plain version: float64 outputs, bit for bit."""
+    args = make_inputs(B, H, E, seed=B + H + E, device=cuda, ring_dtype=np.float64)
+    before = dict(fused_history_reads.launches)
+    got = fused_history_reads(*args, H)
+    want = fused_history_reads_ref(*args, H)
+    torch.cuda.synchronize()
+    assert fused_history_reads.launches == {**before, "float64": before["float64"] + 1}
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
         assert torch.equal(a, b)
 
 
@@ -68,17 +92,21 @@ def test_rollout_on_cuda_matches_cpu(cuda):
     density = {}
     for device in ("cuda", "cpu"):
         scn = build_scenario(**args, history_window=64, device=device)
-        before = fused_history_reads.launches
+        before = fused_history_reads.launches["float32"]
         final, _ = simulate(scn, scn.engine_params, scn.init_state(2), 120, record=False)
-        assert fused_history_reads.launches - before == (120 if device == "cuda" else 0)
+        launched = fused_history_reads.launches["float32"] - before
+        assert launched == (120 if device == "cuda" else 0)
         density[device] = final.density.cpu()
     torch.testing.assert_close(density["cuda"], density["cpu"], rtol=0, atol=5e-3)
 
 
-def test_stochastic_rollout_on_cuda(cuda):
-    """melbourne, 64 replicas, H=16, 100 stochastic steps on the card:
-    finite, non-negative, mass conserved to float32 rounding."""
-    scn = NetworkEnvGenerator(history_window=16, device=cuda).create_network("melbourne")
+@pytest.mark.parametrize("binomial_mode", ["fast", "exact"])
+def test_stochastic_rollout_on_cuda(cuda, binomial_mode):
+    """melbourne, 64 replicas, H=16, 100 stochastic steps on the card with
+    each binomial sampler (``fast`` is the main path's): finite,
+    non-negative, mass conserved to float32 rounding."""
+    scn = build_scenario(**NetworkEnvGenerator().scenario_args("melbourne"),
+                         history_window=16, binomial_mode=binomial_mode, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     final, _ = simulate(scn, scn.engine_params, scn.init_state(64), 100, gen=gen,
                         stochastic=True, record=False)
@@ -89,3 +117,42 @@ def test_stochastic_rollout_on_cuda(cuda):
     peak = final.cum_in.abs().max().item()
     err = (final.cum_in - final.cum_out - final.num_peds).abs().max().item()
     assert err <= 100 * 1.5 * 2.0 ** -23 * max(peak, 1.0)
+
+
+def test_golden_fixture_on_cuda(cuda):
+    """butterfly's golden fixture (routed turning fractions) in float64
+    exact-parity mode on the card, through the float64 kernel: every
+    recorded field within 1e-5 (tests/test_golden_parity.py's target)."""
+    before = fused_history_reads.launches["float64"]
+    errors, _, T = golden_errors(Path(__file__).parent / "golden" / "butterfly.npz", cuda)
+    assert fused_history_reads.launches["float64"] - before == T - 1
+    assert errors.keys() == FIELDS.keys()
+    bad = {k: v for k, v in errors.items() if not v <= TOL}
+    assert not bad, bad
+
+
+def test_randomized_env_episode_on_cuda(cuda):
+    """45_intersections with OD randomization, 16 replicas each with its
+    own randomized EngineParams, 60 stochastic RL steps (exact binomial)
+    with no host sync: finite obs and rewards of shape [16, ...], one
+    kernel launch per engine step, mass conserved."""
+    env = PedNetParallelEnv("45_intersections", od_randomize=True, device=cuda)
+    core, B = env.core, 16
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    eps = randomize_engine_params_batched(env.scn, gen, B)
+    states, _ = core.batch_reset(B)
+    actions = {a: torch.from_numpy(np.tile(env.action_space(a).high, (B, 1))).to(cuda)
+               for a in env.possible_agents}
+    before = fused_history_reads.launches["float32"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(60):
+            states, obs, rewards, done = core.batch_step_randomized(states, actions, eps, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused_history_reads.launches["float32"] - before == 60
+    for k in env.possible_agents:
+        assert obs[k].shape[0] == B and bool(torch.isfinite(obs[k]).all())
+        assert rewards[k].shape == (B,) and bool(torch.isfinite(rewards[k]).all())
+    err = (states.cum_in - states.cum_out - states.num_peds).abs().max().item()
+    assert err <= 60 * 1.5 * 2.0 ** -23 * max(states.cum_in.abs().max().item(), 1.0)

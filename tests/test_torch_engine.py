@@ -279,3 +279,35 @@ def test_stochastic_distribution_matches_jax():
         assert rel < rel_tol or z < 4.0, (
             f"{name}: port {m_mu:.3f}±{mine.std():.3f} vs JAX {r_mu:.3f}±{ref.std():.3f} "
             f"(rel {rel:.3f}, z {z:.2f})")
+
+
+@pytest.mark.parametrize("n,p", [(3.7, 0.7), (12.0, 0.85), (40.0, 0.9), (250.0, 0.7)])
+def test_binom_exact_matches_jax_in_distribution(n, p):
+    """Stochastic exact mode (``torch.binomial`` on floor(n) trials)
+    against ``jax.random.binomial`` at the same (n, p), 20,000 draws each.
+    Bands: each mean within 5 standard errors of floor(n) p; each variance
+    within 5% of floor(n) p (1 - p) (the sample variance's relative sd is
+    ~1% here); the two samples' Kolmogorov-Smirnov p-value above 1e-4."""
+    size = 20_000
+    nf = float(np.floor(n))
+    got = engine._binom(torch.full((size,), n), torch.tensor(p),
+                        torch.Generator().manual_seed(8), True, "exact").numpy()
+    want = np.asarray(jax.random.binomial(jax.random.PRNGKey(8), jnp.full((size,), nf),
+                                          jnp.float32(p)))
+    var = nf * p * (1 - p)
+    for x in (got, want):
+        assert ((x >= 0) & (x <= nf) & (x == np.round(x))).all()
+        assert abs(x.mean() - nf * p) < 5 * np.sqrt(var / size)
+        assert abs(x.var() - var) < 0.05 * var
+    assert scipy.stats.ks_2samp(got, want).pvalue > 1e-4
+
+
+def test_binom_exact_is_the_default_and_seeded():
+    """build_scenario samples with the exact binomial unless told
+    otherwise (as the JAX package does), and one seed gives one draw."""
+    ts = torch_build(**scenario_args("butterfly_scC"))
+    assert ts.binomial_mode == "exact"
+    n = torch.full((1000,), 9.5)
+    a = engine._binom(n, torch.tensor(0.7), torch.Generator().manual_seed(3), True)
+    b = engine._binom(n, torch.tensor(0.7), torch.Generator().manual_seed(3), True)
+    assert torch.equal(a, b) and a.max() <= 9.0

@@ -4,6 +4,7 @@ routing tables and initial state.  The port never imports JAX."""
 
 import copy
 import dataclasses
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -13,10 +14,14 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from pednstream_tpu import config as jax_config
+from pednstream_tpu.env.core import PedNetEnvCore as JaxEnvCore
+from pednstream_tpu.generator import NetworkEnvGenerator as JaxGenerator
 from pednstream_tpu.scenario import build_scenario as jax_build
 from pednstream_tpu_torch import config as torch_config
+from pednstream_tpu_torch.env.core import PedNetEnvCore
 from pednstream_tpu_torch.generator import NetworkEnvGenerator
 from pednstream_tpu_torch.scenario import build_scenario as torch_build
 
@@ -42,10 +47,15 @@ def scenario_args(name, seed=3):
     return args
 
 
-def both(name, **kwargs):
+def both(name, ftype=None, **kwargs):
+    """The JAX and the port's build of a dataset; ``ftype`` is a dtype
+    name ("float64"), given to each package as its own dtype."""
     args = scenario_args(name)
-    return (jax_build(**copy.deepcopy(args), **kwargs),
-            torch_build(**copy.deepcopy(args), **kwargs))
+    jkw, tkw = dict(kwargs), dict(kwargs)
+    if ftype is not None:
+        jkw["ftype"], tkw["ftype"] = getattr(jnp, ftype), getattr(torch, ftype)
+    return (jax_build(**copy.deepcopy(args), **jkw),
+            torch_build(**copy.deepcopy(args), **tkw))
 
 
 def as_np(x):
@@ -67,7 +77,7 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12  # config ... ops._build, interop
+    assert int(out.stdout.strip()) >= 19  # config ... env.pz_env, randomize
 
 
 @pytest.mark.parametrize("name", DATASETS)
@@ -96,7 +106,12 @@ def test_host_build_matches_jax(name, window):
     """Exact equality of every static index/per-link array, every
     EngineParams leaf (values and dtype), every non-one-hot RoutingTables
     field and the initial state, leaf for leaf."""
-    js, ts = both(name, history_window=window)
+    assert_builds_match(*both(name, history_window=window))
+
+
+def assert_builds_match(js, ts):
+    """Every static array, EngineParams leaf (values and dtype), routing
+    field and initial-state leaf of the port's build equals the JAX one's."""
     for attr in ("n_nodes", "n_links", "max_deg", "H", "avg_tt_window",
                  "simulation_steps", "unit_time"):
         assert getattr(ts, attr) == getattr(js, attr), attr
@@ -151,22 +166,90 @@ def test_padded_segment_tables(name):
             assert (row[len(want):] == -1).all()
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"exact_parity": True},
-    {"binomial_mode": "exact"},
-    {"od_candidates": ([1], [2])},
-])
-def test_later_slices_raise(kwargs):
-    args = scenario_args("small_network")
-    with pytest.raises(NotImplementedError):
-        torch_build(**args, **kwargs)
+@pytest.fixture
+def x64_on():
+    """float64 JAX arrays for one test, restored afterwards (the session
+    ``x64`` fixture would leave them on for every later test file in the
+    worker)."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
 
 
-def test_optimal_solve_raises():
-    args = scenario_args("small_network")
-    args["params"]["assign_flows_type"] = "optimal"
-    with pytest.raises(NotImplementedError):
-        torch_build(**args)
+OD_META = ("nominal_origin_mask", "nominal_dest_mask", "candidate_origin_mask",
+           "candidate_dest_mask", "demand_full", "od_pair_origin", "od_pair_dest",
+           "od_table_full")
+
+
+@pytest.mark.parametrize("option", ["exact_parity", "binomial_exact", "od_candidates",
+                                    "optimal_solve"])
+def test_later_slice_options_build_like_jax(option, x64_on):
+    """The options the first slice rejected now build, exactly as the JAX
+    host build does: the float64 exact-parity anchor, the exact binomial,
+    the od_candidates superset (with its randomization metadata) and the
+    "optimal" LP solve."""
+    kwargs = {
+        "exact_parity": {"ftype": "float64", "exact_parity": True},
+        "binomial_exact": {"binomial_mode": "exact"},
+        "od_candidates": {"od_candidates": ([1, 4], [2, 5])},
+        "optimal_solve": {},
+    }[option]
+    name = "small_network" if option != "od_candidates" else "butterfly_scC"
+    if option == "optimal_solve":
+        args = scenario_args(name)
+        args["params"]["assign_flows_type"] = "optimal"
+        js = jax_build(**copy.deepcopy(args))
+        ts = torch_build(**copy.deepcopy(args))
+        assert ts.optimal_solver.nodes == js.optimal_solver.nodes
+        for n in js.optimal_solver.nodes:
+            np.testing.assert_array_equal(ts.optimal_solver._A_ub[n],
+                                          js.optimal_solver._A_ub[n])
+    else:
+        js, ts = both(name, **kwargs)
+    assert_builds_match(js, ts)
+    for attr in ("exact_parity", "binomial_mode", "assign_flows_type", "od_randomizable"):
+        assert getattr(ts, attr) == getattr(js, attr), attr
+    assert str(ts.ftype).removeprefix("torch.") == np.dtype(js.ftype).name
+    if js.od_randomizable:
+        assert js.candidate_origin_mask.any() and js.candidate_dest_mask.any()
+        for attr in OD_META:
+            np.testing.assert_array_equal(getattr(ts, attr), getattr(js, attr), err_msg=attr)
+
+
+def _defaults(fn, skip):
+    """``[(name, default)]`` of a callable's parameters, dtypes by name."""
+    out = []
+    for name, par in inspect.signature(fn).parameters.items():
+        if name in skip:
+            continue
+        d = par.default
+        if isinstance(d, torch.dtype):
+            d = str(d).removeprefix("torch.")
+        elif d is not inspect.Parameter.empty and d is not None and not isinstance(
+                d, (bool, int, float, str, tuple)):
+            d = np.dtype(d).name
+        out.append((name, d))
+    return out
+
+
+@pytest.mark.parametrize("which", ["build_scenario", "NetworkEnvGenerator.__init__",
+                                   "NetworkEnvGenerator.create_network",
+                                   "PedNetEnvCore.__init__"])
+def test_public_defaults_match_jax(which):
+    """The port's public signatures take the JAX package's parameters with
+    the same defaults (dtypes compared by name), less the port's
+    ``device`` and the JAX Pallas switches."""
+    jax_fn, torch_fn = {
+        "build_scenario": (jax_build, torch_build),
+        "NetworkEnvGenerator.__init__": (JaxGenerator.__init__, NetworkEnvGenerator.__init__),
+        "NetworkEnvGenerator.create_network": (JaxGenerator.create_network,
+                                               NetworkEnvGenerator.create_network),
+        "PedNetEnvCore.__init__": (JaxEnvCore.__init__, PedNetEnvCore.__init__),
+    }[which]
+    want = _defaults(jax_fn, skip=("use_pallas", "pallas_interpret"))
+    got = _defaults(torch_fn, skip=("device",))
+    assert got == want
 
 
 def test_state_to_another_device():
