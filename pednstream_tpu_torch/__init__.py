@@ -7,8 +7,10 @@ the ``'optimal'`` solve) scipy, and never JAX.  It holds the host-side
 scenario compiler (config, topology, demand, routing tables, scenario,
 generator, lp_solver), the engine's float32 fast path and float64
 exact-parity path (engine, fd, routing), per-replica domain randomization
-(randomize), the RL env core and its PettingZoo wrapper (env) and the
-fused N-curve history-read kernel (ops, csrc/ncurve.cu).
+(randomize), the RL env core and its PettingZoo wrapper (env), the
+policy networks, PPO/SAC agents, batched PPO and SAC trainers and training
+drivers (rl) and the fused N-curve history-read kernel (ops,
+csrc/ncurve.cu).
 """
 
 from .config import load_config

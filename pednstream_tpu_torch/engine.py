@@ -104,6 +104,13 @@ def _binom(n, p, gen: Optional[torch.Generator], stochastic: bool, mode: str = "
     return binom_fast(nf.to(_f32), p.to(_f32), u, z).to(nf.dtype)
 
 
+def _column(x: torch.Tensor, t: int) -> torch.Tensor:
+    """Column ``t`` of ``x``'s last (time) axis, clamped into range as the
+    JAX engine's traced index is: an RL step whose ``action_gap`` engine
+    steps run past the horizon reads the last column."""
+    return x[..., min(max(t, 0), x.shape[-1] - 1)]
+
+
 def _rev(scn, x):
     """Value of the reverse link of every link (last axis)."""
     return x[..., scn.reverse_idx]
@@ -284,7 +291,7 @@ def _node_solve(scn, ep: EngineParams, t: int, S, R, phi_c=None, phi=None):
     """
     B = S.shape[0]
     N, M = scn.n_nodes, scn.max_deg
-    demand_t = ep.demand[..., t - 1]  # node.py:176; [N] or per replica [B, N]
+    demand_t = _column(ep.demand, t - 1)  # node.py:176; [N] or per replica [B, N]
 
     s_pad = torch.where(scn.in_valid, S[:, scn.in_safe], 0.0)
     s_pad = torch.where(scn.virt_slot, demand_t[..., None], s_pad)
@@ -392,7 +399,7 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     dense = scn.exact_parity or scn.assign_flows_type == "optimal"
     if scn.routing is not None:
         cap_default = st.back_gate * ep.k_critical * ep.free_flow_speed * scn.unit_time
-        od_flow_t = ep.od_table[..., t]
+        od_flow_t = _column(ep.od_table, t)
         if dense:
             phi = turning_fractions_dense(
                 scn.routing, scn.n_nodes, scn.max_deg, scn.node_arity, scn.slot_valid,

@@ -1,8 +1,9 @@
-"""Where a step's time goes: the port's two batched paths under
+"""Where a step's time goes: the port's batched paths under
 ``torch.profiler``.
 
     python -m pednstream_tpu_torch.profiling env [--binomial-mode fast]
     python -m pednstream_tpu_torch.profiling main
+    python -m pednstream_tpu_torch.profiling ppo
 
 ``env`` is the randomized RL env episode of ``chip_smoke.py``
 (45_intersections with OD randomization, 256 replicas, each with its own
@@ -16,6 +17,17 @@ one JSON line: wall ms per step (profiler off), device kernels and
 device self time), the device idle share ``1 - kernel / wall``, and the
 kernels with the most device time, each with its count and ms per step.
 On a CPU device there are no kernels; the counts read 0.
+
+``ppo`` is ``chip_smoke.py``'s trainer path: ``BatchedPPOTrainer`` as
+``scripts/train_zoo.py`` configures it (``ZOO_PPO``: attention, open
+anchor, randomized worlds, 256 replicas, 16 RL steps per iteration) on its
+45_intersections env (``ZOO_PPO_ENV``: option2, action_gap 15, H=64, exact
+binomial).  After ``--warm`` iterations it times
+``--steps`` iterations on the host clock, each half (the rollout and the
+update) ending in a synchronize, then profiles the two halves separately
+over ``--steps`` iterations each.  It prints wall ms per iteration for
+each half, device kernels per RL step of the rollout and per update,
+kernel ms, idle shares and each half's top kernels.
 """
 
 import argparse
@@ -35,10 +47,19 @@ from .generator import NetworkEnvGenerator
 from .randomize import randomize_engine_params_batched
 from .scenario import build_scenario
 
+# scripts/train_zoo.py's 45_intersections PPO run, the one that made the
+# shipped ppo_agents_45_intersections: its env and its BatchedPPOTrainer
+ZOO_PPO_ENV = dict(dataset="45_intersections", obs_mode="option2", action_gap=15,
+                   history_window=64)
+ZOO_PPO = dict(num_envs=256, rollout_len=16, net_type="attention", hidden_dim=64,
+               gate_anchor="open", max_delta=4.0, randomize=True, randomize_fraction=1.0,
+               lr=1e-4, epochs=4, minibatches=4, kl_target=0.02, reward_scale=1e-4)
 DEFAULTS = {"env": {"dataset": "45_intersections", "batch": 256, "warm": 130, "steps": 20,
                     "binomial_mode": "exact", "history_window": None},
             "main": {"dataset": "melbourne", "batch": 1024, "warm": 30, "steps": 20,
-                     "binomial_mode": "fast", "history_window": 16}}
+                     "binomial_mode": "fast", "history_window": 16},
+            "ppo": {**ZOO_PPO_ENV, "batch": ZOO_PPO["num_envs"], "warm": 1, "steps": 2,
+                    "rollout_len": ZOO_PPO["rollout_len"]}}
 
 
 def _sync(device) -> None:
@@ -83,6 +104,35 @@ def main_stepper(dataset: str, batch: int, binomial_mode: str, device, seed: int
     return step
 
 
+def _trace(calls, steps: int, device, top: int, between=None) -> dict:
+    """Kernel statistics of ``steps`` calls of ``calls`` under
+    ``torch.profiler`` (``between`` runs after each call, untraced)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    kernels, launches = {}, 0
+    for _ in range(steps):
+        with torch.profiler.profile(activities=activities) as prof:
+            calls()
+            _sync(device)
+        for r in prof.key_averages():
+            if r.device_type == DeviceType.CUDA:
+                n, us = kernels.get(r.key, (0, 0.0))
+                kernels[r.key] = (n + r.count, us + r.self_device_time_total)
+            elif r.key.startswith("cudaLaunch"):
+                launches += r.count
+        if between is not None:
+            between()
+    rows = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)
+    return {
+        "kernels": sum(n for n, _ in kernels.values()) / steps,
+        "launch_calls": launches / steps,
+        "kernel_ms": sum(us for _, us in kernels.values()) / 1e3 / steps,
+        "top_kernels": [{"name": k[:120], "per_call": n / steps, "ms_per_call": us / 1e3 / steps}
+                        for k, (n, us) in rows[:top]],
+    }
+
+
 def profile(step: Callable[[], None], warm: int, steps: int, device, top: int = 12) -> dict:
     """Time and profile ``step`` (see the module docstring)."""
     for _ in range(warm):
@@ -93,35 +143,69 @@ def profile(step: Callable[[], None], warm: int, steps: int, device, top: int = 
         step()
     _sync(device)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(steps):
-            step()
-        _sync(device)
-    rows = prof.key_averages()
-    kernels = [r for r in rows if r.device_type == DeviceType.CUDA]
-    launches = sum(r.count for r in rows if r.key.startswith("cudaLaunch"))
-    kernel_ms = sum(r.self_device_time_total for r in kernels) / 1e3 / steps
-    kernels.sort(key=lambda r: r.self_device_time_total, reverse=True)
+    tr = _trace(step, steps, device, top)
     return {
         "steps": steps, "warm": warm, "wall_ms_per_step": wall_ms,
-        "kernels_per_step": sum(r.count for r in kernels) / steps,
-        "launch_calls_per_step": launches / steps,
-        "kernel_ms_per_step": kernel_ms,
-        "device_idle_share": 1.0 - kernel_ms / wall_ms,
-        "top_kernels": [{"name": r.key[:120], "per_step": r.count / steps,
-                         "ms_per_step": r.self_device_time_total / 1e3 / steps}
-                        for r in kernels[:top]],
+        "kernels_per_step": tr["kernels"], "launch_calls_per_step": tr["launch_calls"],
+        "kernel_ms_per_step": tr["kernel_ms"],
+        "device_idle_share": 1.0 - tr["kernel_ms"] / wall_ms,
+        "top_kernels": [{"name": r["name"], "per_step": r["per_call"],
+                         "ms_per_step": r["ms_per_call"]} for r in tr["top_kernels"]],
     }
 
 
+def ppo_profile(dataset: str, obs_mode: str, action_gap: int, history_window: int,
+                batch: int, rollout_len: int, warm: int, steps: int, device, seed: int = 0,
+                top: int = 8) -> dict:
+    """The trainer path's two halves, timed and profiled (module docstring)."""
+    from .env import PedNetParallelEnv
+    from .rl.batched_ppo import BatchedPPOTrainer
+
+    env = PedNetParallelEnv(dataset, obs_mode=obs_mode, action_gap=action_gap,
+                            history_window=history_window, device=device)
+    tr = BatchedPPOTrainer(env.core, **{**ZOO_PPO, "num_envs": batch,
+                                        "rollout_len": rollout_len})
+    ts = tr.init(seed)
+    box = {}
+
+    def rollout():
+        box["rolled"] = tr._rollout(ts)
+
+    def update():
+        tr._learn(ts, box.pop("rolled"))
+
+    for _ in range(warm):
+        tr.train_iteration(ts)
+    _sync(device)
+    wall = {"rollout": 0.0, "update": 0.0}
+    for _ in range(steps):
+        for half, fn in (("rollout", rollout), ("update", update)):
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall[half] += (time.perf_counter() - t0) * 1e3 / steps
+    out = {"steps": steps, "warm": warm, "engine_steps_per_iteration": rollout_len * action_gap,
+           "wall_ms_per_iteration": wall["rollout"] + wall["update"]}
+    traces = {"rollout": _trace(rollout, steps, device, top, between=update)}
+    rollout()
+    traces["update"] = _trace(update, steps, device, top, between=rollout)
+    for half, tr_ in traces.items():
+        out[half] = {"wall_ms": wall[half], "kernels": tr_["kernels"],
+                     "launch_calls": tr_["launch_calls"], "kernel_ms": tr_["kernel_ms"],
+                     "device_idle_share": 1.0 - tr_["kernel_ms"] / wall[half],
+                     "top_kernels": tr_["top_kernels"]}
+    out["rollout"]["kernels_per_rl_step"] = traces["rollout"]["kernels"] / rollout_len
+    kernel_ms = traces["rollout"]["kernel_ms"] + traces["update"]["kernel_ms"]
+    out["device_idle_share"] = 1.0 - kernel_ms / out["wall_ms_per_iteration"]
+    return out
+
+
 def run(path: str, device="cuda", **overrides) -> dict:
-    """Build ``path`` ("env" or "main") with its defaults, ``overrides``
-    applied, and profile it."""
+    """Build ``path`` ("env", "main" or "ppo") with its defaults,
+    ``overrides`` applied, and profile it."""
     cfg = {**DEFAULTS[path], **overrides}
+    if path == "ppo":
+        return {"path": path, **cfg, "device": str(device), **ppo_profile(**cfg, device=device)}
     make = env_stepper if path == "env" else main_stepper
     step = make(cfg["dataset"], cfg["batch"], cfg["binomial_mode"], device,
                 history_window=cfg["history_window"])
@@ -137,6 +221,8 @@ def main(argv=None) -> int:
         ap.add_argument(f"--{key}", type=int)
     ap.add_argument("--binomial-mode", choices=("exact", "fast"))
     args = ap.parse_args(argv)
+    if args.path == "ppo" and args.binomial_mode is not None:
+        ap.error("--binomial-mode does not apply to ppo: the zoo env samples exactly")
     overrides = {k: v for k, v in vars(args).items()
                  if k not in ("path", "device") and v is not None}
     card = None

@@ -141,6 +141,9 @@ class Scenario:
         self.start_slot = dev(topo.start_slot, torch.int64)
         self.is_separator = dev(lp.is_separator)
         self.fd_type = dev(lp.fd_type)
+        # staged so that init_state copies nothing from the host (the
+        # trainers reset states inside sync-free rollouts)
+        self.width0 = dev(lp.width).to(ftype)
         # -1 sentinels resolved once: clamped gather indices + validity
         self.in_safe = self.in_link_idx.clamp(min=0)
         self.out_safe = self.out_link_idx.clamp(min=0)
@@ -202,7 +205,7 @@ class Scenario:
         def per_link(x):
             return x.to(device).expand(B, E).clone()
 
-        width = torch.as_tensor(self.topo.link_params.width, device=device).to(f)
+        width = self.width0.to(device)
         is_sep = self.is_separator.to(device)
         gate = torch.where(is_sep, width / 2, width)
         tt0 = self.travel_time0

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels of fused_history_reads (float32
 and float64) against their plain version, engine rollouts on cuda against
-the CPU, a golden fixture in exact-parity mode and a short randomized env
-episode.  Every test here needs a GPU, skips without one, and is marked
+the CPU, a golden fixture in exact-parity mode, a short randomized env
+episode, the network families on the card against the CPU and one batched
+PPO iteration.  Every test here needs a GPU, skips without one, and is marked
 ``slow``, so the default tiers leave it out.  The file imports no JAX (nor
 does it need tests/conftest.py), so on a machine with a card it runs as
 
@@ -38,10 +39,11 @@ def make_inputs(B, H, E, seed, device, ring_dtype=np.float32):
     return [torch.from_numpy(a).to(device) for a in rings + idx + [coefs]]
 
 
-# the last two: the main path's melbourne shape, the env episode's
-# 45_intersections shape (256 replicas, full-horizon rings, 168 links)
+# then: the main path's melbourne shape, the env episode's
+# 45_intersections shape (256 replicas, full-horizon rings, 168 links) and
+# the PPO and SAC trainers' (256 and 64 replicas, H=64, 168 links)
 @pytest.mark.parametrize("B,H,E", [(1, 16, 1), (5, 17, 1000), (2, 64, 4097), (1024, 16, 938),
-                                   (256, 701, 168)])
+                                   (256, 701, 168), (256, 64, 168), (64, 64, 168)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
     args = make_inputs(B, H, E, seed=B + H + E, device=cuda)
     before = fused_history_reads.launches["float32"]
@@ -156,3 +158,69 @@ def test_randomized_env_episode_on_cuda(cuda):
         assert rewards[k].shape == (B,) and bool(torch.isfinite(rewards[k]).all())
     err = (states.cum_in - states.cum_out - states.num_peds).abs().max().item()
     assert err <= 60 * 1.5 * 2.0 ** -23 * max(states.cum_in.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("family", ["attention", "lstm", "udlstm", "gat", "stacked", "mlp",
+                                    "sac"])
+def test_networks_on_cuda_match_cpu(cuda, family):
+    """Each network family at the zoo's width (hidden 64) on the card
+    against the same module on the CPU, three recurrent steps: forward
+    rtol 1e-5 (the card's float32 products, no TF32)."""
+    from pednstream_tpu_torch.rl import networks as nets
+
+    gen = torch.Generator().manual_seed(0)
+    B, L, F, K = 5, 4, 4, 4
+    if family == "sac":
+        mods = [nets.SACActor(L * F, L, K), nets.SACCritic(L * F, L, K)]
+    else:
+        mods = list(nets.build_family(family, L * F, L, F, 64, stack_size=K))
+    obs_shape = {"stacked": (K, L * F), "sac": (K, L * F), "lstm": (L * F,),
+                 "mlp": (L * F,)}.get(family, (L, F))
+    obs = [torch.randn((B,) + obs_shape, generator=gen) for _ in range(3)]
+    act = torch.rand((B, L), generator=gen)
+    adj = (torch.ones(L, L),) if family == "gat" else ()
+    for mod in mods:
+        nets.init_flax_(mod, gen)
+        outs = {}
+        for device in ("cpu", "cuda"):
+            m = mod.to(device)
+            carry = nets.family_carry(family, B, L, 64, device) if family != "sac" else ()
+            res = []
+            with torch.no_grad():
+                for o in obs:
+                    o = o.to(device)
+                    if isinstance(m, nets.SACCritic):
+                        res.extend(m(o, act.to(device)))
+                    elif isinstance(m, nets.SACActor):
+                        res.extend(m(o))
+                    else:
+                        *out, carry = m(o, carry, *(a.to(device) for a in adj))
+                        res.extend([*out, *carry])
+            outs[device] = [r.cpu() for r in res]
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_batched_ppo_iteration_on_cuda(cuda):
+    """One BatchedPPOTrainer iteration (attention, randomized worlds) on
+    butterfly_scC on the card with no host sync until the metrics are
+    read: one float32 kernel launch per engine step, finite metrics,
+    parameters and state on the card."""
+    from pednstream_tpu_torch.rl import BatchedPPOTrainer
+
+    env = PedNetParallelEnv("butterfly_scC", obs_mode="option2", action_gap=5,
+                            history_window=16, device=cuda)
+    tr = BatchedPPOTrainer(env.core, num_envs=8, rollout_len=4, net_type="attention",
+                           gate_anchor="open", max_delta=4.0, randomize=True)
+    ts = tr.init(seed=0)
+    before = fused_history_reads.launches["float32"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, metrics = tr._learn(ts, tr._rollout(ts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused_history_reads.launches["float32"] - before == 4 * 5
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    for module in (*ts.params.values(), *ts.value_params.values()):
+        assert all(p.device.type == "cuda" for p in module.parameters())
+    assert ts.env_states.cum_in.device.type == "cuda" and ts.iteration == 1

@@ -267,6 +267,28 @@ def test_rl_step_matches_jax(name):
     assert float(np.asarray(st.virt_arr_cum).sum() + np.asarray(st.num_peds).sum()) > 0
 
 
+def test_rl_step_past_the_horizon_matches_jax():
+    """An RL step whose action_gap engine steps run past the horizon (as
+    45_intersections' 700 steps under action_gap=15 do): the demand and
+    OD-table reads clamp to the last column as the JAX engine's traced
+    index does, and the step matches JAX's (rtol 1e-6) with done set."""
+    js, ts = both_scenarios("butterfly_scC")
+    kw = dict(obs_mode="option2", action_gap=7, stochastic=False)
+    jcore = JaxEnvCore(js, jax_agent_spec(js), **kw)
+    tcore = PedNetEnvCore(ts, build_agent_spec(ts), **kw)
+    step = jax.jit(lambda st, a, ep: jcore._step_impl(st, a, ep)[:4])
+    rng = np.random.default_rng(5)
+    st, _ = jcore.reset(jax.random.PRNGKey(0))
+    for _ in range(6):
+        st = step(st, random_actions(jcore.spec, rng), js.engine_params)[0]
+    st = st.replace(t=jax.numpy.asarray(js.simulation_steps - 3, st.t.dtype))
+    actions = random_actions(jcore.spec, rng)
+    want = step(st, actions, js.engine_params)
+    got = tcore.step(network_state_from_jax(numpy_leaves(st)), actions)[:4]
+    assert got[0].t == js.simulation_steps + 4 and bool(got[3])
+    _assert_step_matches(got, want, "past the horizon")
+
+
 def test_batch_step_randomized_matches_jax():
     """batch_step_randomized with JAX-drawn per-replica EngineParams,
     carried across by interop, against the JAX core's, from the JAX

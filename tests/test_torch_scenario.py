@@ -64,20 +64,23 @@ def as_np(x):
 
 def test_port_never_imports_jax():
     """Every module of the port imports in a fresh interpreter without
-    loading jax or flax."""
+    loading jax, flax or optax."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import pednstream_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in ('jax', 'flax', 'pednstream_tpu') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'pednstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
+        "assert sum(n.startswith('pednstream_tpu_torch.rl') for n in names) == 10, names\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 19  # config ... env.pz_env, randomize
+    # config ... env.pz_env, randomize, profiling, golden, and rl/ with its
+    # nine modules
+    assert int(out.stdout.strip()) >= 31
 
 
 @pytest.mark.parametrize("name", DATASETS)
@@ -235,17 +238,32 @@ def _defaults(fn, skip):
 
 @pytest.mark.parametrize("which", ["build_scenario", "NetworkEnvGenerator.__init__",
                                    "NetworkEnvGenerator.create_network",
-                                   "PedNetEnvCore.__init__"])
+                                   "PedNetEnvCore.__init__", "PPOAgent.__init__",
+                                   "SACAgent.__init__", "build_agents",
+                                   "BatchedPPOTrainer.__init__",
+                                   "BatchedSACTrainer.__init__"])
 def test_public_defaults_match_jax(which):
     """The port's public signatures take the JAX package's parameters with
     the same defaults (dtypes compared by name), less the port's
     ``device`` and the JAX Pallas switches."""
+    from pednstream_tpu import rl as jrl
+    from pednstream_tpu.rl.train import build_agents as jax_build_agents
+    from pednstream_tpu_torch import rl as trl
+    from pednstream_tpu_torch.rl.train import build_agents
+
     jax_fn, torch_fn = {
         "build_scenario": (jax_build, torch_build),
         "NetworkEnvGenerator.__init__": (JaxGenerator.__init__, NetworkEnvGenerator.__init__),
         "NetworkEnvGenerator.create_network": (JaxGenerator.create_network,
                                                NetworkEnvGenerator.create_network),
         "PedNetEnvCore.__init__": (JaxEnvCore.__init__, PedNetEnvCore.__init__),
+        "PPOAgent.__init__": (jrl.PPOAgent.__init__, trl.PPOAgent.__init__),
+        "SACAgent.__init__": (jrl.SACAgent.__init__, trl.SACAgent.__init__),
+        "build_agents": (jax_build_agents, build_agents),
+        "BatchedPPOTrainer.__init__": (jrl.BatchedPPOTrainer.__init__,
+                                       trl.BatchedPPOTrainer.__init__),
+        "BatchedSACTrainer.__init__": (jrl.BatchedSACTrainer.__init__,
+                                       trl.BatchedSACTrainer.__init__),
     }[which]
     want = _defaults(jax_fn, skip=("use_pallas", "pallas_interpret"))
     got = _defaults(torch_fn, skip=("device",))
