@@ -11,13 +11,19 @@ exits non-zero):
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles the kernels from ``pednstream_tpu_torch/csrc`` (or loads
    the library built for the same sources).
-3. kernel vs plain: ``fused_history_reads`` on the card against its plain
-   PyTorch version on the same CUDA inputs, bitwise, for each of its two
-   instantiations: float32 at the PPO and SAC trainers' shapes (the
-   kernels line reports the PPO one), at the main path's melbourne shape
-   and at the env episode's 45_intersections shape, float64 at the exact path's
-   melbourne shape (full-horizon rings), each also at an odd shape; all
-   timed with CUDA events.
+3. kernel vs plain: ``fused_history_reads`` (the lookback and the three
+   ring reads in one kernel) on the card against its plain PyTorch
+   version on the same CUDA operands, bitwise, for each of its two
+   instantiations: float32 at the main path's real operands (melbourne
+   after 100 steps) and at random operands at the main path's, the env
+   episode's and the PPO and SAC trainers' shapes (those two with
+   per-replica shockwave lookbacks) and two odd shapes; float64 at the
+   exact path's melbourne shape (full-horizon rings) and an odd shape.
+   Each case prints the kernel's device time per launch (a CUDA graph of
+   launches timed with CUDA events), the wrapper's host time per call, the
+   plain version's time, the bound (each byte moved once, at the card's
+   memory rate), the sector bound of the rings' layout (each distinct
+   32-byte sector the scattered ring reads touch) and the shares reached.
 4. main path: the melbourne scenario (938 directed links), 1024 lockstep
    replicas, a 16-step history window, the fast binomial sampler, 500
    stochastic steps through ``simulate_batched`` on the card with no host
@@ -85,6 +91,8 @@ SAC_TRAIN = {"num_envs": 64, "collect_steps": 8, "updates_per_iter": 32, "batch_
              "warmup_transitions": 1024, "gate_anchor": "open", "max_delta": 4.0,
              "randomize": True}
 TRAIN_ITERATIONS = 4
+# the main path's steps before its real operands are taken for phase 3
+KERNEL_REAL_STEPS = 100
 ZOO_RTOL = 1e-5
 
 
@@ -100,7 +108,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events around
+    back-to-back calls: a call that launches many kernels is paced by the
+    host)."""
     import torch
 
     for _ in range(warmup):
@@ -115,43 +125,167 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def history_inputs(B: int, H: int, E: int, seed: int, device, ring_dtype="float32"):
-    """Random operands of the fused read, made with numpy from ``seed``;
-    indices run from below 0 to beyond H so negative slots and the
-    mod-H wrap are both exercised.  Coefs are float32 for either ring
-    dtype."""
+def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per call of ``fn``, apart from the host's cost:
+    ``calls`` calls captured in one CUDA graph, the graph replayed
+    ``replays`` times between CUDA events; the median replay over
+    ``calls``.  Replays run back to back, so operands that fit the 50 MB L2
+    are read warm."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # capture needs a warmed-up call
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the host clock over ``calls``
+    calls with no sync in between (the median of three runs)."""
+    import statistics
+
+    import torch
+
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+OPS_PER_LINK = 16  # the lookback's and the diffusion sum's float operations
+
+
+def history_operands(B: int, H: int, E: int, seed: int, ring_dtype="float32",
+                     per_replica: bool = False) -> list:
+    """Random operands of the fused read on the card, made with numpy from
+    ``seed``: rings, avg_tt (lags over [0, 3H), a tenth on a half step),
+    gamma and tau_shockwave (``[E]``, or ``[B, E]`` when ``per_replica``),
+    then t = H + 7 (negative bases on full-horizon rings, slots that wrap),
+    unit_time 10 and windowed for H of at most 64 rows."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
+    unit_time = 10.0
     rings = [rng.uniform(0, 100, (B, H, E)).astype(ring_dtype) for _ in range(3)]
-    idx = [rng.integers(-5, 3 * H, (B, E)).astype(np.int32) for _ in range(3)]
-    coefs = rng.uniform(0, 1, (B, 4, E)).astype(np.float32)
-    return [torch.from_numpy(a).to(device) for a in (*rings, *idx, coefs)]
+    avg_tt = rng.uniform(0, 3 * H * unit_time, (B, E)).astype(np.float32)
+    halves = ((rng.integers(0, 3 * H, (B, E)) + 0.5) * unit_time).astype(np.float32)
+    avg_tt = np.where(rng.uniform(size=(B, E)) < 0.1, halves, avg_tt)
+    lead = (B,) if per_replica else ()
+    gamma = rng.uniform(0.001, 0.1, lead + (E,)).astype(ring_dtype)
+    tau_sw = rng.integers(0, 3 * H, lead + (E,)).astype(np.int32)
+    tensors = [torch.from_numpy(a).to("cuda") for a in (*rings, avg_tt, gamma, tau_sw)]
+    return tensors + [H + 7, unit_time, H <= 64]
 
 
-def phase_kernel(card: str) -> dict:
-    """Each instantiation against the plain version; returns
-    ``{dtype: {"max_abs_err", "ms", "plain_ms"}}`` at its path's shape."""
+def real_operands(scn, steps: int) -> list:
+    """The main path's operands after ``steps`` stochastic steps of a
+    fresh batch: its rings, travel times, gamma, shockwave lookbacks and
+    step."""
     import torch
-    from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_ref
+    from pednstream_tpu_torch import simulate_batched
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    st = simulate_batched(scn, scn.engine_params, scn.init_state(MAIN["batch"]), steps,
+                          gen=g, stochastic=True)
+    ep = scn.engine_params
+    return [st.cum_in_ring, st.cum_out_ring, st.inflow_ring, st.avg_tt, ep.gamma,
+            ep.tau_shockwave, st.t, scn.unit_time, scn.windowed]
+
+
+def read_bound(ops) -> dict:
+    """The least time the card could take for the read on ``ops``: each
+    byte it must move counted once (the ring values this step's lags
+    need, avg_tt, gamma and tau_shockwave once per distinct value, the
+    three outputs) over the memory rate, against its float operations over
+    the float32 rate.  Beside it, the sector bound of the rings' layout:
+    the distinct 32-byte sectors the six per-link ring reads touch (a
+    scattered row costs a whole sector), with the other bytes as before."""
+    import torch
+    from pednstream_tpu_torch.ops import lookback
+
+    rings, (avg_tt, gamma, tau), (t, unit_time, windowed) = ops[:3], ops[3:6], ops[6:]
+    B, H, E = rings[0].shape
+    item = rings[0].element_size()
+    _, _, idx_ci, base, idx_co = lookback(avg_tt.expand(B, E), gamma, tau, t, H, unit_time,
+                                          windowed)
+    reads = [(0, idx_ci, None), (1, idx_co, None)] + [(2, base - k, base - k >= 0)
+                                                      for k in range(4)]
+    lags = sum(int(valid.sum()) for _, _, valid in reads[2:])
+    col = (torch.arange(B, device=base.device)[:, None] * H * E
+           + torch.arange(E, device=base.device)[None, :])
+    sectors = torch.cat([((col + (idx % H).long() * E) * item // 32 * 3 + ring)[
+        valid if valid is not None else slice(None)].reshape(-1) for ring, idx, valid in reads])
+
+    def distinct(x):
+        return x.element_size() * (x.numel() if x.dim() == 2 and x.stride(0) else E)
+
+    other = distinct(avg_tt) + distinct(gamma) + distinct(tau) + 3 * item * B * E
+    moved = item * (2 * B * E + lags) + other
+    sector_bytes = 32 * torch.unique(sectors).numel() + other
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_LINK * B * E / FP32_OPS_PER_S * 1e3
+    return {"bound_bytes": moved, "lags_read": lags, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "sector_bytes": sector_bytes,
+            "sector_bound_ms": max(sector_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)}
+
+
+def phase_kernel(card: str, scn) -> dict:
+    """Each instantiation against the plain version at every path's shape
+    and at the main path's real operands; returns ``{dtype: record}`` for
+    the kernels line (float32: the main path's real operands)."""
+    import torch
+    from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_plain
     from pednstream_tpu_torch.profiling import ZOO_PPO, ZOO_PPO_ENV
 
-    # the trainers' reads: 168 links, H=64 rings, one row per replica
-    H = ZOO_PPO_ENV["history_window"]
-    cases = [("float32", (ZOO_PPO["num_envs"], H, ENV["links"])),  # the kernels line's entry
-             ("float32", (SAC_TRAIN["num_envs"], H, ENV["links"])),
-             ("float32", (MAIN["batch"], MAIN["history_window"], 938)),
-             ("float32", ENV_SHAPE),
-             ("float32", (3, 40, 70)),
-             ("float64", EXACT_SHAPE),
-             ("float64", (3, 40, 70))]
+    H_train = ZOO_PPO_ENV["history_window"]
+    M = (MAIN["batch"], MAIN["history_window"], 938)
+    cases = [("real", "float32", M, False),  # the kernels line's float32 entry
+             ("random", "float32", M, False),
+             ("random", "float32", ENV_SHAPE, True),
+             ("random", "float32", (ZOO_PPO["num_envs"], H_train, ENV["links"]), True),
+             ("random", "float32", (SAC_TRAIN["num_envs"], H_train, ENV["links"]), True),
+             ("random", "float32", (1, 16, 1), False),
+             ("random", "float32", (5, 17, 1000), False),
+             ("random", "float64", EXACT_SHAPE, False),  # the kernels line's float64 entry
+             ("random", "float64", (3, 40, 70), False)]
     record = {}
-    for dtype, (B, H, E) in cases:
-        args = history_inputs(B, H, E, SEED, "cuda", dtype)
+    for source, dtype, (B, H, E), per_replica in cases:
+        if source == "real":
+            ops = real_operands(scn, KERNEL_REAL_STEPS)
+        else:
+            ops = history_operands(B, H, E, SEED, dtype, per_replica)
         before = dict(fused_history_reads.launches)
-        got = fused_history_reads(*args, H)
-        want = fused_history_reads_ref(*args, H)
+        got = fused_history_reads(*ops)
+        want = fused_history_reads_plain(*ops)
         torch.cuda.synchronize()
         if fused_history_reads.launches[dtype] != before[dtype] + 1:
             raise AssertionError(f"a {dtype} call did not launch the {dtype} kernel")
@@ -162,30 +296,47 @@ def phase_kernel(card: str) -> dict:
             err = max(err, (a - b).abs().max().item())
             if not torch.equal(a, b):
                 raise AssertionError(f"{dtype} kernel != plain for {name} at B={B} H={H} "
-                                     f"E={E}: max abs err {err}")
-        ms = cuda_ms(lambda: fused_history_reads(*args, H))
-        plain_ms = cuda_ms(lambda: fused_history_reads_ref(*args, H))
-        emit("kernel_vs_plain", kernel="fused_history_reads", dtype=dtype, B=B, H=H, E=E,
-             bitwise_equal=True, max_abs_err=err, ms=ms, plain_ms=plain_ms, card=card)
-        record.setdefault(dtype, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                                     f"E={E} ({source} operands): max abs err {err}")
+        timing = {"device_ms": device_ms(lambda: fused_history_reads(*ops)),
+                  "host_ms": host_us(lambda: fused_history_reads(*ops)) / 1e3,
+                  "plain_ms": cuda_ms(lambda: fused_history_reads_plain(*ops))}
+        bound = read_bound(ops)
+        rings_mb = 3 * ops[0].numel() * ops[0].element_size() / 1e6
+        emit("kernel_vs_plain", kernel="fused_history_reads", dtype=dtype, operands=source,
+             B=B, H=H, E=E, t=ops[6], windowed=ops[8], per_replica_gamma_tau=per_replica,
+             bitwise_equal=True, max_abs_err=err, **timing, **bound,
+             share_of_bound=bound["bound_ms"] / timing["device_ms"],
+             share_of_sector_bound=bound["sector_bound_ms"] / timing["device_ms"],
+             rings_mb=rings_mb, rings_fit_l2=rings_mb < 50.0, card=card)
+        if (source, dtype) in (("real", "float32"), ("random", "float64")):
+            record.setdefault(dtype, {"max_abs_err": err, "ms": timing["device_ms"],
+                                      **timing, "bound_ms": bound["bound_ms"],
+                                      "bound_by": bound["bound_by"], "library_ms": None})
     return record
 
 
-def phase_main(card: str) -> int:
-    import torch
-    from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, simulate_batched
-    from pednstream_tpu_torch.ops import fused_history_reads
+def main_scenario():
+    """The main path's scenario: melbourne, H=16, the fast binomial sampler
+    (as bench.py's rows), on the card."""
+    from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario
 
-    # the batched fast path: the fast binomial sampler, as bench.py's rows
     args = NetworkEnvGenerator().scenario_args(MAIN["dataset"])
     scn = build_scenario(**args, history_window=MAIN["history_window"],
                          binomial_mode="fast", device="cuda")
     if scn.n_links != 938:
         raise AssertionError(f"melbourne has {scn.n_links} links, expected 938")
+    return scn
+
+
+def phase_main(card: str, scn) -> int:
+    import torch
+    from pednstream_tpu_torch import simulate_batched
+    from pednstream_tpu_torch.ops import fused_history_reads
+
     ep = scn.engine_params
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
-    # warm-up on its own state: the build, the allocator and lazy CUDA init
+    # warm-up on its own state: the allocator and lazy CUDA init
     simulate_batched(scn, ep, scn.init_state(MAIN["batch"]), 5, gen=g, stochastic=True)
     states = scn.init_state(MAIN["batch"])
     torch.cuda.synchronize()
@@ -232,7 +383,8 @@ def phase_main(card: str) -> int:
     return launches
 
 
-def phase_gpu_vs_cpu(card: str) -> None:
+def phase_gpu_vs_cpu(card: str) -> int:
+    """The card against the CPU; returns the float32 launches."""
     import torch
     from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, simulate
     from pednstream_tpu_torch.ops import fused_history_reads
@@ -243,12 +395,13 @@ def phase_gpu_vs_cpu(card: str) -> None:
     for device in ("cuda", "cpu"):
         scn = build_scenario(**args, history_window=GPU_VS_CPU["history_window"],
                              device=device)
-        before = fused_history_reads.launches["float32"]
+        reset_counts()
         final, _ = simulate(scn, scn.engine_params, scn.init_state(1),
                             GPU_VS_CPU["steps"], record=False)
-        launched = fused_history_reads.launches["float32"] - before
-        if device == "cuda" and launched != GPU_VS_CPU["steps"]:
-            raise AssertionError("the cuda rollout did not go through the kernel")
+        launched = dict(fused_history_reads.launches)
+        want = {"float32": GPU_VS_CPU["steps"] if device == "cuda" else 0, "float64": 0}
+        if launched != want:
+            raise AssertionError(f"the {device} rollout launched {launched}, not {want}")
         density[device] = final.density.cpu()
     err = (density["cuda"] - density["cpu"]).abs().max().item()
     if not err <= GPU_VS_CPU["atol"]:
@@ -256,6 +409,7 @@ def phase_gpu_vs_cpu(card: str) -> None:
     emit("gpu_vs_cpu", dataset=GPU_VS_CPU["dataset"], steps=GPU_VS_CPU["steps"],
          history_window=GPU_VS_CPU["history_window"], max_abs_density_err=err,
          atol=GPU_VS_CPU["atol"], card=card)
+    return GPU_VS_CPU["steps"]
 
 
 def reset_counts() -> None:
@@ -661,21 +815,24 @@ def main() -> int:
          nvcc_seconds=info["seconds"], library=str(Path(info["path"]).relative_to(ROOT)),
          ptxas=[ln.strip() for ln in info["log"].splitlines() if "registers" in ln])
 
-    record = phase_kernel(card)
-    launches = {"float32": phase_main(card)}
-    phase_gpu_vs_cpu(card)
-    launches["float64"] = phase_golden(card)
-    launches["float32"] += phase_env(card)
+    scn = main_scenario()
+    record = phase_kernel(card, scn)
+    # each path's launches of each instantiation, counted from 0
+    launches = {"float32": {"main": phase_main(card, scn),
+                            "gpu_vs_cpu": phase_gpu_vs_cpu(card)},
+                "float64": {"golden": phase_golden(card)}}
+    launches["float32"]["env"] = phase_env(card)
     env = train_env()
-    launches["float32"] += phase_ppo_train(card, env)
-    launches["float32"] += phase_sac_train(card, env)
+    launches["float32"]["ppo_train"] = phase_ppo_train(card, env)
+    launches["float32"]["sac_train"] = phase_sac_train(card, env)
     phase_zoo(card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_history_reads", "route": "cuda", "dtype": dtype,
         "source": "pednstream_tpu_torch/csrc/ncurve.cu",
         "replaces": "pednstream_tpu/ops/ncurve.py:180",
-        "launches": launches[dtype], **record[dtype],
+        "launches": sum(launches[dtype].values()), "launches_per_path": launches[dtype],
+        **record[dtype],
     } for dtype in ("float32", "float64")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

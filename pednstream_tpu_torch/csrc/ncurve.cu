@@ -1,40 +1,53 @@
 // Fused N-curve history reads for the LTM engine step, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel pednstream_tpu/ops/ncurve.py::fused_history_reads
-// (pl.pallas_call in that file).  For every replica b and link e, over the
-// time-major rings [B, H, E] (time index i lives at row i mod H):
+// Replaces the Pallas TPU kernel fused_history_reads
+// (pednstream_tpu/ops/ncurve.py:152-195, pl.pallas_call at :180) together
+// with the lookback that feeds it (pednstream_tpu/engine.py:155-197,
+// _lookback_state and _fused_hist).  For every replica b and link e, over
+// the time-major rings [B, H, E] (time index i lives at row i mod H):
 //
-//   ci[b,e]   = cum_in_ring [b, idx_ci[b,e] mod H, e]      (0 if idx_ci < 0)
-//   co[b,e]   = cum_out_ring[b, idx_co[b,e] mod H, e]      (0 if idx_co < 0)
-//   diff[b,e] = ((t0 + t1) + t2) + t3,  tk = coefs[b,k,e] * inflow_ring[b, (base[b,e]-k) mod H, e]
-//               and tk = 0 where base-k < 0.
+//   tau    = rint(avg_tt / unit_time)         (clamped to H - 6 when windowed)
+//   tau_s  = tau_shockwave                    (clamped to H - 1 when windowed)
+//   F      = 1 / (1 + gamma * avg_tt),  m = 1 - F,  q = m * m
+//   coefs  = (F, F*m, F*q, F*(q*m))           all float32
+//   ci     = cum_in_ring [b, max(t - tau, 0) mod H, e]
+//   co     = cum_out_ring[b, max(t - tau_s, 0) mod H, e]
+//   diff   = ((t0 + t1) + t2) + t3,  tk = coefs[k] * inflow_ring[b, (base-k) mod H, e],
+//            base = t - 1 - tau, and tk = 0 where base - k < 0.
 //
 // Two instantiations of one body: float rings (the batched fast path) and
-// double rings (the exact-parity anchor).  Coefs are float32 in both: the
-// JAX exact path multiplies a float32 F*(1-F)^k into a float64 inflow
-// (pednstream_tpu/engine.py:307-314), so the double kernel widens each coef
-// exactly before its product.  Outputs take the rings' type, as the Pallas
-// kernel's do.
+// double rings (the exact-parity anchor, where each float32 coef is widened
+// exactly before its product, as pednstream_tpu/engine.py:307-314 does).
+// Outputs take the rings' type.  Every rounding step is an _rn intrinsic,
+// so no fused multiply-add forms and the result equals the plain PyTorch
+// version (ops/ncurve.py::fused_history_reads_plain) bit for bit.
 //
-// The TPU kernel reads each [H, tile] ring block whole and reduces it
-// against one-hot masks, because per-lane dynamic gathers serialise on the
-// TPU.  Here each thread owns one (replica, link) and makes at most six
-// direct loads from the rings (ci, co and four inflow lags, 24 bytes in
-// float, 48 in double), plus 28 bytes of indices and coefs and 12 (24) bytes
-// of output, against the 3*H*4 ring bytes a link costs the TPU kernel.
-// Neighbouring threads take neighbouring links, so each ring-row access of a
-// warp is one coalesced segment.  At melbourne size (B=1024, E=938) the
-// float kernel moves about 61 MB per call, under 20 microseconds at the
-// card's 3.35 TB/s, so it is bound by launch and memory latency rather than
-// by bytes; the double kernel on the exact path (B=1, E=938) is bound by
-// its launch alone.
+// What bounds it.  Counting each byte once, a (replica, link) needs six
+// ring values (24 B in float), avg_tt (4 B) and three outputs (12 B):
+// 40 B, or 38 MB at melbourne size (B=1024, E=938), 11.5 microseconds at
+// the card's 3.35 TB/s.  gamma and tau_shockwave are per link, shared by
+// the replicas (or one row each for randomized worlds).  The ring reads
+// land on per-link rows, so a warp's read of one ring touches up to 32
+// different 32-byte sectors for 128 useful bytes: where neighbouring links
+// have different lags, the sector traffic, not the useful bytes, sets the
+// time.  The integer work per link is two reductions mod H.
 //
-// Indices are reduced mod H only when non-negative (C's % truncates towards
-// zero where jnp.mod floors).  The products and sums use the _rn intrinsics
-// so no fused multiply-add is formed: the result then equals the plain
-// PyTorch version (ops/ncurve.py::fused_history_reads_ref), which
-// multiplies and adds in separate rounded steps in the same order, bit for
-// bit.
+// What the design does about it.  The TPU kernel reduced each whole
+// [H, tile] ring block against one-hot masks because per-lane gathers
+// serialise there; here a thread owns one (replica, link) and loads only
+// the rows it needs.  The lookback that used to take about twenty eager
+// kernels and a 28 B/link round trip through device memory (indices and
+// coefs) is computed in registers.  A 2-D grid (link tile, replica) needs
+// no division to find the replica; the four diffusion lags are consecutive
+// rows below base, so the slot steps down with a wrap instead of a
+// reduction mod H each.
+//
+// A dense form for H = 16 rings, which loaded every row of a link's inflow
+// column (coalesced across the warp, 64 B per link) and picked the four
+// lags in registers, was slower than these direct loads at the main path's
+// real and random operands on the H100 (PERF.md) and is not kept:
+// neighbouring links share enough lag rows that the scattered sectors cost
+// less than the whole column.
 
 #include <cuda_runtime.h>
 
@@ -44,76 +57,116 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
 
 template <typename T>
-__device__ __forceinline__ T ring_at(const T* __restrict__ col, int idx, int H, long long E) {
-    return idx >= 0 ? __ldg(col + (long long)(idx % H) * E) : T(0);
-}
+struct HistoryArgs {
+    const T* cum_in_ring;  // [B, H, E]
+    const T* cum_out_ring;
+    const T* inflow_ring;
+    const float* avg_tt;  // [B, E], replica stride avg_tt_stride (0 or E)
+    const T* gamma;       // [E] or [B, E], replica stride gamma_stride
+    const int* tau_shockwave;
+    long long avg_tt_stride, gamma_stride, tau_stride;
+    T* out;  // [3, B, E]: ci, co, diff
+    int B, H, E, t, windowed;
+    float unit_time;
+};
 
 template <typename T>
-__global__ void fused_history_reads_kernel(
-    const T* __restrict__ cum_in_ring, const T* __restrict__ cum_out_ring,
-    const T* __restrict__ inflow_ring, const int* __restrict__ idx_ci,
-    const int* __restrict__ idx_co, const int* __restrict__ base,
-    const float* __restrict__ coefs, T* __restrict__ ci_out,
-    T* __restrict__ co_out, T* __restrict__ diff_out, int B, int H, int E) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)B * E) return;
-    const long long b = i / E;
-    const long long e = i - b * E;
-    const long long ring_off = b * H * (long long)E + e;
+__global__ void history_reads_kernel(const HistoryArgs<T> a) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= a.E) return;
+    const int b = blockIdx.y;
+    const int H = a.H;
+    const long long E = a.E;
+    const long long be = b * E + e;
 
-    ci_out[i] = ring_at(cum_in_ring + ring_off, __ldg(idx_ci + i), H, E);
-    co_out[i] = ring_at(cum_out_ring + ring_off, __ldg(idx_co + i), H, E);
+    const float tt = __ldg(a.avg_tt + b * a.avg_tt_stride + e);
+    const float g = to_f32(__ldg(a.gamma + b * a.gamma_stride + e));
+    int tau_s = __ldg(a.tau_shockwave + b * a.tau_stride + e);
+    int tau = __float2int_rn(__fdiv_rn(tt, a.unit_time));  // round half to even
+    if (a.windowed) {
+        tau = min(tau, H - 6);
+        tau_s = min(tau_s, H - 1);
+    }
+    const int base = a.t - 1 - tau;
+    // idx_ci = max(t - tau, 0) = base + 1 when base >= 0, else 0
+    const int base_slot = base >= 0 ? base % H : 0;
+    const int ci_slot = base >= 0 ? (base_slot + 1 == H ? 0 : base_slot + 1) : 0;
+    const int co_slot = max(a.t - tau_s, 0) % H;
 
-    const int bs = __ldg(base + i);
-    const float* c = coefs + b * 4 * (long long)E + e;
-    const T* in_col = inflow_ring + ring_off;
+    const long long col = (long long)b * H * E + e;
+    const T ci = __ldg(a.cum_in_ring + col + ci_slot * E);
+    const T co = __ldg(a.cum_out_ring + col + co_slot * E);
+
+    const float F = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(g, tt)));
+    const float m = __fsub_rn(1.0f, F);
+    const float q = __fmul_rn(m, m);
+    const float coef[4] = {F, __fmul_rn(F, m), __fmul_rn(F, q), __fmul_rn(F, __fmul_rn(q, m))};
+
+    // the four lags are the rows base, base-1, base-2, base-3: step the
+    // slot down with a wrap; a lag before time 0 adds nothing
+    const T* in_col = a.inflow_ring + col;
     T acc = T(0);
+    int slot = base_slot;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        const int s = bs - k;
-        const T term =
-            s >= 0 ? mul_rn(T(__ldg(c + k * (long long)E)), ring_at(in_col, s, H, E)) : T(0);
+        const T term = base - k >= 0 ? mul_rn(T(coef[k]), __ldg(in_col + slot * E)) : T(0);
         acc = k == 0 ? term : add_rn(acc, term);
+        slot = slot == 0 ? H - 1 : slot - 1;
     }
-    diff_out[i] = acc;
+
+    const long long plane = (long long)a.B * E;
+    a.out[be] = ci;
+    a.out[plane + be] = co;
+    a.out[2 * plane + be] = acc;
 }
 
 template <typename T>
-int launch(const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
-           const void* idx_ci, const void* idx_co, const void* base, const void* coefs,
-           void* ci_out, void* co_out, void* diff_out, int B, int H, int E, void* stream) {
-    const long long n = (long long)B * E;
-    if (n == 0) return 0;
-    const int threads = 256;
-    const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
-    fused_history_reads_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const T*)cum_in_ring, (const T*)cum_out_ring, (const T*)inflow_ring,
-        (const int*)idx_ci, (const int*)idx_co, (const int*)base, (const float*)coefs,
-        (T*)ci_out, (T*)co_out, (T*)diff_out, B, H, E);
+int launch_history(const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
+                   const void* avg_tt, long long avg_tt_stride, const void* gamma,
+                   long long gamma_stride, const void* tau_shockwave, long long tau_stride,
+                   void* out, int B, int H, int E, int t, float unit_time, int windowed,
+                   void* stream) {
+    if (B == 0 || E == 0) return 0;
+    HistoryArgs<T> a{(const T*)cum_in_ring, (const T*)cum_out_ring, (const T*)inflow_ring,
+                     (const float*)avg_tt, (const T*)gamma, (const int*)tau_shockwave,
+                     avg_tt_stride, gamma_stride, tau_stride, (T*)out,
+                     B, H, E, t, windowed, unit_time};
+    // one warp-aligned tile of links per block, one block row per replica
+    const int threads = E >= 256 ? 256 : (E + 31) / 32 * 32;
+    const dim3 grid((E + threads - 1) / threads, B);
+    history_reads_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Every operand is dense and row-major: rings [B, H, E] (float in the first
-// entry point, double in the second), indices [B, E] int32, coefs
-// [B, 4, E] float32, outputs [B, E] of the rings' type.  Each launches on
-// `stream` (a cudaStream_t) and returns cudaGetLastError(): 0 when the
-// launch was accepted.
-extern "C" int ncurve_fused_history_reads(
+// Rings [B, H, E] dense and row-major, float in the first entry point and
+// double in the second; avg_tt float32, gamma of the rings' type and
+// tau_shockwave int32, each [E] or [B, E] with unit stride along the links
+// and the given replica stride (0 or E); out [3, B, E] of the rings' type
+// (ci, co, diff).  windowed is 0 or 1.  Each launches on `stream` (a
+// cudaStream_t) and returns cudaGetLastError(): 0 when the launch was
+// accepted.
+extern "C" int ncurve_history_reads(
     const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
-    const void* idx_ci, const void* idx_co, const void* base, const void* coefs,
-    void* ci_out, void* co_out, void* diff_out, int B, int H, int E, void* stream) {
-    return launch<float>(cum_in_ring, cum_out_ring, inflow_ring, idx_ci, idx_co, base,
-                         coefs, ci_out, co_out, diff_out, B, H, E, stream);
+    const void* avg_tt, long long avg_tt_stride, const void* gamma, long long gamma_stride,
+    const void* tau_shockwave, long long tau_stride, void* out, int B, int H, int E, int t,
+    float unit_time, int windowed, void* stream) {
+    return launch_history<float>(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, avg_tt_stride,
+                                 gamma, gamma_stride, tau_shockwave, tau_stride, out, B, H, E,
+                                 t, unit_time, windowed, stream);
 }
 
-extern "C" int ncurve_fused_history_reads_f64(
+extern "C" int ncurve_history_reads_f64(
     const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
-    const void* idx_ci, const void* idx_co, const void* base, const void* coefs,
-    void* ci_out, void* co_out, void* diff_out, int B, int H, int E, void* stream) {
-    return launch<double>(cum_in_ring, cum_out_ring, inflow_ring, idx_ci, idx_co, base,
-                          coefs, ci_out, co_out, diff_out, B, H, E, stream);
+    const void* avg_tt, long long avg_tt_stride, const void* gamma, long long gamma_stride,
+    const void* tau_shockwave, long long tau_stride, void* out, int B, int H, int E, int t,
+    float unit_time, int windowed, void* stream) {
+    return launch_history<double>(cum_in_ring, cum_out_ring, inflow_ring, avg_tt,
+                                  avg_tt_stride, gamma, gamma_stride, tau_shockwave,
+                                  tau_stride, out, B, H, E, t, unit_time, windowed, stream);
 }

@@ -8,7 +8,7 @@ update.  Every state leaf carries a leading replica axis ``B``; ``t`` is a
 Python int shared by the lockstep batch (``NetworkState.t``), so the whole
 batch advances by one call per step.
 
-The three per-link ring lookbacks come from one
+The lookback and the three per-link ring reads come from one
 :func:`ops.fused_history_reads` call per step (a CUDA kernel on the card,
 float32 or float64 by the rings' dtype), which the JAX engine reaches with
 ``use_pallas=True``; its float64 instantiation sums the diffusion terms in
@@ -120,36 +120,18 @@ def _area(scn, ep: EngineParams, st: NetworkState):
     return torch.where(scn.is_separator, ep.length * st.sep_width, ep.length * ep.width)
 
 
-def _lookback_state(scn, ep: EngineParams, st: NetworkState):
-    """The dynamic N-curve lookback tau (link.py:260), the diffusion
-    coefficients ``[B, 4, E]`` (link.py:199-214) and the shockwave lookback
-    (link.py:380), with the windowed-ring clamps of
-    ``pednstream_tpu.engine._lookback_state``."""
-    avg_tt = st.avg_tt
-    tau = torch.round(avg_tt / scn.unit_time).to(torch.int32)
+def _history(scn, ep: EngineParams, st: NetworkState, t: int):
+    """The lookback (tau link.py:260, diffusion coefficients link.py:199-214,
+    shockwave lookback link.py:380, with the windowed-ring clamps) and the
+    three ring reads of this step in one fused kernel
+    (``pednstream_tpu.engine._lookback_state`` + ``_fused_hist``).  The
+    clamped shockwave lookback is also returned: the receiving flow reads it."""
+    ci, co, diff = fused_history_reads(
+        st.cum_in_ring, st.cum_out_ring, st.inflow_ring, st.avg_tt, ep.gamma,
+        ep.tau_shockwave, t, scn.unit_time, scn.windowed)
     tau_shock = ep.tau_shockwave
     if scn.windowed:
-        # bounded N-curve and shockwave lookbacks: stay inside the ring
-        tau = torch.clamp(tau, max=scn.H - 6)
         tau_shock = torch.clamp(tau_shock, max=scn.H - 1)
-    F = 1.0 / (1.0 + ep.gamma.to(_f32) * avg_tt)
-    one_m_f = 1.0 - F
-    sq = one_m_f * one_m_f
-    coefs = torch.stack([F, F * one_m_f, F * sq, F * (sq * one_m_f)], dim=1)
-    return tau, coefs, tau_shock
-
-
-def _history(scn, ep: EngineParams, st: NetworkState, t: int):
-    """The three ring lookbacks of this step through the fused kernel
-    (``pednstream_tpu.engine._fused_hist``)."""
-    tau, coefs, tau_shock = _lookback_state(scn, ep, st)
-    B = st.batch
-    idx_ci = torch.clamp(t - tau, min=0).to(torch.int32)  # = ts + 1 - tau
-    base = (t - 1 - tau).to(torch.int32)  # diffusion lag base
-    idx_co = torch.clamp(t - tau_shock, min=0).to(torch.int32).expand(B, -1).contiguous()
-    ci, co, diff = fused_history_reads(
-        st.cum_in_ring, st.cum_out_ring, st.inflow_ring, idx_ci, idx_co, base,
-        coefs, scn.H)
     return {"tau_shock": tau_shock, "ci": ci, "co": co, "diff": diff}
 
 

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT
 from ..generator import NetworkEnvGenerator
 from .agents import build_agent_spec, build_spaces
 from .core import PedNetEnvCore
@@ -45,7 +46,7 @@ class PedNetParallelEnv(ParallelEnv):
         history_window: Optional[int] = None,
         od_randomize: bool = False,
         global_reward_coef: float = 0.0,
-        device="cpu",
+        device=DEFAULT,
     ):
         super().__init__()
         self.render_mode = render_mode

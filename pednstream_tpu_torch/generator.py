@@ -21,6 +21,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from .config import load_config
+from .device import DEFAULT, resolve
 from .scenario import Scenario, build_scenario
 
 DATA_ROOT = Path(__file__).resolve().parent.parent / "data"
@@ -31,12 +32,12 @@ class NetworkEnvGenerator:
 
     def __init__(self, data_dir: Optional[str] = None, ftype=None,
                  exact_parity: bool = False, history_window: Optional[int] = None,
-                 device="cpu"):
+                 device=DEFAULT):
         self.data_root = Path(data_dir) if data_dir else DATA_ROOT
         self.ftype = ftype
         self.exact_parity = exact_parity
         self.history_window = history_window
-        self.device = device
+        self.device = resolve(device)
         self.network_data = None
         self.config = None
         self._loaded_dataset = None

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .device import DEFAULT
 from .engine import simulate
 from .generator import NetworkEnvGenerator
 from .scenario import Scenario, build_scenario
@@ -56,10 +57,11 @@ def fixture_args(path) -> Tuple[dict, int, "np.lib.npyio.NpzFile"]:
         return args, params["simulation_steps"], g
     # the real-world networks, built from data/ as the generator does
     np.random.seed(42)
-    return NetworkEnvGenerator().scenario_args(Path(path).stem), meta["steps"], g
+    # host arrays only: the generator builds nothing here
+    return NetworkEnvGenerator(device="cpu").scenario_args(Path(path).stem), meta["steps"], g
 
 
-def golden_errors(path, device="cpu") -> Tuple[Dict[str, float], Scenario, int]:
+def golden_errors(path, device=DEFAULT) -> Tuple[Dict[str, float], Scenario, int]:
     """Run the fixture at ``path`` on ``device`` for its ``T - 1`` steps;
     returns ``(max abs error per recorded field, scenario, T)``."""
     args, T, g = fixture_args(path)

@@ -13,6 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .device import DEFAULT, resolve
 from .state import EngineParams, NetworkState
 
 
@@ -27,16 +28,17 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device)
 
 
-def engine_params_from_jax(leaves: Mapping[str, np.ndarray], device="cpu") -> EngineParams:
+def engine_params_from_jax(leaves: Mapping[str, np.ndarray], device=DEFAULT) -> EngineParams:
     """The port's EngineParams from the JAX one's leaves, each in its own
     dtype (float64 flows in exact mode, float32 travel times, int32
     lookbacks).  Unbatched leaves stay unbatched; a batched (randomized)
     EngineParams keeps its leading replica axis on every leaf."""
+    device = resolve(device)
     return EngineParams(**{f.name: _tensor(leaves[f.name], device)
                            for f in dataclasses.fields(EngineParams)})
 
 
-def network_state_from_jax(leaves: Mapping[str, np.ndarray], device="cpu") -> NetworkState:
+def network_state_from_jax(leaves: Mapping[str, np.ndarray], device=DEFAULT) -> NetworkState:
     """The port's NetworkState from a JAX one's leaves, each in its own
     dtype.
 
@@ -44,6 +46,7 @@ def network_state_from_jax(leaves: Mapping[str, np.ndarray], device="cpu") -> Ne
     batch axis of 1; a vmapped one keeps its batch axis and must share one
     ``t``.  The PRNG key, if present, is dropped.
     """
+    device = resolve(device)
     batched = np.asarray(leaves["cum_in"]).ndim == 2
     t = np.asarray(leaves["t"]).reshape(-1)
     if not (t == t[0]).all():
@@ -57,9 +60,10 @@ def network_state_from_jax(leaves: Mapping[str, np.ndarray], device="cpu") -> Ne
     return NetworkState(t=int(t[0]), **{name: conv(name) for name in fields})
 
 
-def tensors_from_jax(arrays: Mapping[str, np.ndarray], device="cpu") -> dict:
+def tensors_from_jax(arrays: Mapping[str, np.ndarray], device=DEFAULT) -> dict:
     """A dict of arrays (an env's observations, rewards or actions) as
     tensors on ``device``, each in its own dtype."""
+    device = resolve(device)
     return {k: _tensor(v, device) for k, v in arrays.items()}
 
 

@@ -1,3 +1,5 @@
-from .ncurve import fused_history_reads, fused_history_reads_ref
+from .ncurve import (fused_history_reads, fused_history_reads_plain, fused_history_reads_ref,
+                     lookback)
 
-__all__ = ["fused_history_reads", "fused_history_reads_ref"]
+__all__ = ["fused_history_reads", "fused_history_reads_plain", "fused_history_reads_ref",
+           "lookback"]

@@ -30,6 +30,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -84,7 +86,10 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(build()["path"])
-    for fn in (lib.ncurve_fused_history_reads, lib.ncurve_fused_history_reads_f64):
-        fn.argtypes = [_P] * 10 + [_I] * 3 + [_P]
+    for fn in (lib.ncurve_history_reads, lib.ncurve_history_reads_f64):
+        # rings, avg_tt and its replica stride, gamma and its stride,
+        # tau_shockwave and its stride, out, B, H, E, t, unit_time,
+        # windowed, stream
+        fn.argtypes = [_P] * 4 + [_LL, _P, _LL, _P, _LL, _P] + [_I] * 4 + [_F, _I, _P]
         fn.restype = _I
     return lib

@@ -92,7 +92,7 @@ def env_stepper(dataset: str, batch: int, binomial_mode: str, device, seed: int 
 def main_stepper(dataset: str, batch: int, binomial_mode: str, device, seed: int = 0,
                  history_window=16) -> Callable[[], None]:
     """One stochastic step of the lockstep batch per call."""
-    args = NetworkEnvGenerator().scenario_args(dataset)
+    args = NetworkEnvGenerator(device=device).scenario_args(dataset)
     scn = build_scenario(**args, history_window=history_window,
                          binomial_mode=binomial_mode, device=device)
     g = torch.Generator(device=device).manual_seed(seed)

@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT, resolve
 from ..interop import params_from_flax, params_to_flax
 from .networks import PER_LINK, build_family, family_carry, init_flax_
 from .optim import adam_init, adam_update
@@ -57,7 +58,7 @@ class PPOAgent:
         stack_size: int = 1,
         adj: Optional[np.ndarray] = None,
         seed: int = 0,
-        device="cpu",
+        device=DEFAULT,
     ):
         self.obs_dim = obs_dim
         self.act_dim = act_dim
@@ -84,7 +85,7 @@ class PPOAgent:
         # trains).  Restored from the checkpoint on load.
         self.gate_anchor = "current"
         self._episode = 0
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
         # initial weights are drawn on the host, so a seed gives the same

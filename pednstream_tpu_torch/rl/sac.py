@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT, resolve
 from ..interop import params_from_flax, params_to_flax
 from .networks import SACActor, SACCritic, init_flax_
 from .optim import adam_init, adam_update
@@ -93,7 +94,7 @@ class SACAgent:
         action_high: Optional[np.ndarray] = None,
         seed: int = 0,
         is_separator: bool = False,
-        device="cpu",
+        device=DEFAULT,
     ):
         self.is_separator = is_separator
         # gate delta anchoring, mirroring PPOAgent; travels with the
@@ -111,7 +112,7 @@ class SACAgent:
         self.action_low = None if action_low is None else np.asarray(action_low)
         self.action_high = None if action_high is None else np.asarray(action_high)
         self.target_entropy = -float(act_dim)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._episode = 0
 

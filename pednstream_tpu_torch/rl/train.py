@@ -266,7 +266,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--log-file", default=None)
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     env = PedNetParallelEnv(args.dataset, obs_mode=args.obs_mode,

@@ -22,6 +22,7 @@ import networkx as nx
 import numpy as np
 import torch
 
+from .device import DEFAULT, resolve
 from .state import _Tensors
 from .topology import TopologySpec
 
@@ -258,7 +259,7 @@ def build_routing_tables(
     builder: PathSetBuilder,
     od_pairs: List[Tuple[int, int]],
     ftype=torch.float32,
-    device="cpu",
+    device=DEFAULT,
 ) -> Optional[RoutingTables]:
     """Compile turn tables from enumerated paths.
 
@@ -268,6 +269,7 @@ def build_routing_tables(
     all paths realizing it; ods_in_turns / up_od_probs record which OD pairs
     use each turn / upstream arm.
     """
+    device = resolve(device)
     od_index = {p: i for i, p in enumerate(od_pairs)}
     nb2slot = topo.neighbor_to_slot
     M = topo.max_deg

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .demand import ODManager, build_demand_table
+from .device import DEFAULT, resolve
 from .routing import PathSetBuilder, RoutingTables, build_routing_tables
 from .state import EngineParams, NetworkState
 from .topology import TopologySpec, build_topology, parse_controllers
@@ -251,7 +252,7 @@ def build_scenario(
     binomial_mode: str = "exact",
     track_inflow_ring: bool = True,
     od_candidates: Optional[Tuple[List[int], List[int]]] = None,
-    device="cpu",
+    device=DEFAULT,
 ) -> Scenario:
     """Compile a scenario (reference Network.__init__, network.py:56-121).
 
@@ -265,6 +266,7 @@ def build_scenario(
     (zero demand row, zero od_table rows, zero virtual receiving) until
     :mod:`~pednstream_tpu_torch.randomize` opens them per replica.
     """
+    device = resolve(device)
     if ftype not in _NP:
         raise TypeError(f"ftype must be torch.float32 or torch.float64, got {ftype}")
     destination_nodes = list(destination_nodes or [])

@@ -22,11 +22,14 @@ import jax.numpy as jnp
 from pednstream_tpu.env import PedNetParallelEnv as JaxEnv
 from pednstream_tpu.rl.batched_ppo import BatchedPPOTrainer as JaxPPOTrainer
 from pednstream_tpu.rl.batched_sac import BatchedSACTrainer as JaxSACTrainer
-from pednstream_tpu_torch.env import PedNetParallelEnv
+from pednstream_tpu_torch import env as port_env
 from pednstream_tpu_torch.interop import params_from_flax
 from pednstream_tpu_torch.rl.batched_ppo import BatchedPPOTrainer
 from pednstream_tpu_torch.rl.batched_sac import BatchedSACTrainer
 from pednstream_tpu_torch.rl.optim import adam_init
+
+# the port runs on the card unless asked: every CPU test asks
+PedNetParallelEnv = partial(port_env.PedNetParallelEnv, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -278,7 +281,8 @@ def test_sac_export_loads_in_both_packages(env, sac_trained, tmp_path):
     tr, ts, _, _ = sac_trained
     tr.export(ts, str(tmp_path), extra={"val_reward": -1.0})
     wrapped = RunningNormalizeWrapper(env)
-    agents = load_all_agents(build_agents(wrapped, algo="sac"), str(tmp_path), env=wrapped)
+    agents = load_all_agents(build_agents(wrapped, algo="sac", device="cpu"), str(tmp_path),
+                             env=wrapped)
     jwrapped = JaxWrapper(JaxEnv("butterfly_scC", **ENV))
     jagents = jax_load(jax_build(jwrapped, algo="sac"), str(tmp_path), env=jwrapped)
     assert wrapped._frozen and jwrapped._frozen and set(agents) == set(jagents) == {AID}

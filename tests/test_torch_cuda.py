@@ -1,10 +1,13 @@
 """The port on the card: the CUDA kernels of fused_history_reads (float32
-and float64) against their plain version, engine rollouts on cuda against
-the CPU, a golden fixture in exact-parity mode, a short randomized env
+and float64, the lookback folded in) against their plain version at every
+path's shape, with shared, per-replica and broadcast per-link operands;
+an entry point called with no device; engine rollouts on cuda against the
+CPU, a golden fixture in exact-parity mode, a short randomized env
 episode, the network families on the card against the CPU and one batched
-PPO iteration.  Every test here needs a GPU, skips without one, and is marked
-``slow``, so the default tiers leave it out.  The file imports no JAX (nor
-does it need tests/conftest.py), so on a machine with a card it runs as
+PPO iteration.  Every test here needs a GPU, skips without one (decided in
+the ``cuda`` fixture), and is marked ``slow``, so the default tiers leave it
+out.  The file imports no JAX (nor does it need tests/conftest.py), so on
+a machine with a card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider -m slow tests/test_torch_cuda.py
 """
@@ -18,7 +21,7 @@ import torch
 from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, simulate
 from pednstream_tpu_torch.env import PedNetParallelEnv
 from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
-from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_ref
+from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_plain
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
 
 pytestmark = pytest.mark.slow
@@ -31,12 +34,39 @@ def cuda():
     return torch.device("cuda")
 
 
-def make_inputs(B, H, E, seed, device, ring_dtype=np.float32):
+UNIT_TIME = 10.0
+
+
+def make_operands(B, H, E, seed, device, ring_dtype=np.float32, per_replica=False):
+    """The fused read's operands made with numpy from ``seed``: rings,
+    avg_tt (lags over [0, 3H), a tenth on a half step), gamma and
+    tau_shockwave (``[E]``, or ``[B, E]`` when ``per_replica``), then the
+    step t = H + 7 (negative bases on a full-horizon ring, slots that wrap),
+    unit_time and windowed (H of at most 64 rows is a window)."""
     rng = np.random.default_rng(seed)
     rings = [rng.uniform(0, 100, (B, H, E)).astype(ring_dtype) for _ in range(3)]
-    idx = [rng.integers(-5, 3 * H, (B, E)).astype(np.int32) for _ in range(3)]
-    coefs = rng.uniform(0, 1, (B, 4, E)).astype(np.float32)
-    return [torch.from_numpy(a).to(device) for a in rings + idx + [coefs]]
+    avg_tt = rng.uniform(0, 3 * H * UNIT_TIME, (B, E)).astype(np.float32)
+    halves = ((rng.integers(0, 3 * H, (B, E)) + 0.5) * UNIT_TIME).astype(np.float32)
+    avg_tt = np.where(rng.uniform(size=(B, E)) < 0.1, halves, avg_tt)
+    lead = (B,) if per_replica else ()
+    gamma = rng.uniform(0.001, 0.1, lead + (E,)).astype(ring_dtype)
+    tau_sw = rng.integers(0, 3 * H, lead + (E,)).astype(np.int32)
+    tensors = [torch.from_numpy(a).to(device) for a in (*rings, avg_tt, gamma, tau_sw)]
+    return tensors + [H + 7, UNIT_TIME, H <= 64]
+
+
+def assert_kernel_is_plain(ops, dtype=torch.float32):
+    """One launch of the ``dtype`` kernel, bitwise equal to the plain
+    version on the same CUDA operands."""
+    name = str(dtype).removeprefix("torch.")
+    before = dict(fused_history_reads.launches)
+    got = fused_history_reads(*ops)
+    want = fused_history_reads_plain(*ops)
+    torch.cuda.synchronize()
+    assert fused_history_reads.launches == {**before, name: before[name] + 1}
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert torch.equal(a, b)
 
 
 # then: the main path's melbourne shape, the env episode's
@@ -45,44 +75,59 @@ def make_inputs(B, H, E, seed, device, ring_dtype=np.float32):
 @pytest.mark.parametrize("B,H,E", [(1, 16, 1), (5, 17, 1000), (2, 64, 4097), (1024, 16, 938),
                                    (256, 701, 168), (256, 64, 168), (64, 64, 168)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
-    args = make_inputs(B, H, E, seed=B + H + E, device=cuda)
-    before = fused_history_reads.launches["float32"]
-    got = fused_history_reads(*args, H)
-    want = fused_history_reads_ref(*args, H)
-    torch.cuda.synchronize()
-    assert fused_history_reads.launches["float32"] == before + 1
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    assert_kernel_is_plain(make_operands(B, H, E, seed=B + H + E, device=cuda))
 
 
 @pytest.mark.parametrize("B,H,E", [(1, 201, 938), (3, 40, 70), (2, 601, 4097)])
 def test_float64_kernel_equals_plain_bitwise(cuda, B, H, E):
     """The float64 instantiation (the exact path's full-horizon rings)
     against the plain version: float64 outputs, bit for bit."""
-    args = make_inputs(B, H, E, seed=B + H + E, device=cuda, ring_dtype=np.float64)
-    before = dict(fused_history_reads.launches)
-    got = fused_history_reads(*args, H)
-    want = fused_history_reads_ref(*args, H)
-    torch.cuda.synchronize()
-    assert fused_history_reads.launches == {**before, "float64": before["float64"] + 1}
-    for a, b in zip(got, want):
-        assert a.dtype == torch.float64
-        assert torch.equal(a, b)
+    ops = make_operands(B, H, E, seed=B + H + E, device=cuda, ring_dtype=np.float64)
+    assert_kernel_is_plain(ops, torch.float64)
+
+
+@pytest.mark.parametrize("ring_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("form", ["per replica", "broadcast view"])
+def test_kernel_per_replica_operands(cuda, ring_dtype, form):
+    """gamma and tau_shockwave per replica ``[B, E]`` (randomized worlds)
+    and avg_tt, gamma and tau_shockwave as broadcast ``[B, E]`` views
+    (replica stride 0): bitwise equal to the plain version."""
+    ops = make_operands(6, 16, 300, seed=9, device=cuda, ring_dtype=ring_dtype,
+                        per_replica=form == "per replica")
+    if form == "broadcast view":
+        ops[3:6] = [x[0].expand(6, -1) if x.dim() == 2 else x.expand(6, -1) for x in ops[3:6]]
+        assert all(x.stride(0) == 0 for x in ops[3:6])
+    assert_kernel_is_plain(ops, getattr(torch, np.dtype(ring_dtype).name))
 
 
 def test_kernel_unbatched_call(cuda):
-    args = make_inputs(1, 24, 300, seed=1, device=cuda)
-    single = fused_history_reads(*(a[0] for a in args), 24)
-    batched = fused_history_reads(*args, 24)
+    ops = make_operands(1, 24, 300, seed=1, device=cuda)
+    single = fused_history_reads(*(x[0] for x in ops[:4]), *ops[4:])
+    batched = fused_history_reads(*ops)
     for a, b in zip(single, batched):
         assert torch.equal(a, b[0])
 
 
 def test_kernel_rejects_mixed_devices(cuda):
-    args = make_inputs(2, 16, 10, seed=2, device=cuda)
-    args[3] = args[3].cpu()
+    ops = make_operands(2, 16, 10, seed=2, device=cuda)
+    ops[3] = ops[3].cpu()
     with pytest.raises(ValueError):
-        fused_history_reads(*args, 16)
+        fused_history_reads(*ops)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """Called with no device, the port builds on the card and its step
+    reads history through the kernel."""
+    scn = build_scenario(**NetworkEnvGenerator().scenario_args("butterfly_scC"))
+    assert scn.device.type == "cuda" and scn.engine_params.gamma.device.type == "cuda"
+    before = fused_history_reads.launches["float32"]
+    final, _ = simulate(scn, scn.engine_params, scn.init_state(2), 3, record=False)
+    assert final.cum_in.device.type == "cuda"
+    assert fused_history_reads.launches["float32"] - before == 3
+    from pednstream_tpu_torch.rl import PPOAgent
+
+    agent = PPOAgent(obs_dim=16, act_dim=4, features_per_link=4)
+    assert all(p.device.type == "cuda" for p in agent.actor.parameters())
 
 
 def test_rollout_on_cuda_matches_cpu(cuda):

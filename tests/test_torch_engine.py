@@ -7,6 +7,7 @@ argument: closed over as constants, XLA folds and reassociates the
 parameter arithmetic and moves results by an ulp."""
 
 import copy
+from functools import partial
 
 import numpy as np
 import pytest
@@ -22,11 +23,16 @@ from pednstream_tpu.routing import turning_fractions_step as jax_turning
 from pednstream_tpu.scenario import build_scenario as jax_build
 from pednstream_tpu_torch import engine
 from pednstream_tpu_torch.fd import speed_from_density
-from pednstream_tpu_torch.generator import NetworkEnvGenerator
-from pednstream_tpu_torch.interop import (engine_params_from_jax, network_state_from_jax,
-                                          numpy_leaves)
+from pednstream_tpu_torch import generator, interop
+from pednstream_tpu_torch.interop import numpy_leaves
 from pednstream_tpu_torch.routing import turning_fractions_step
-from pednstream_tpu_torch.scenario import build_scenario as torch_build
+from pednstream_tpu_torch.scenario import build_scenario
+
+# the port runs on the card unless asked: every CPU test asks
+NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
+engine_params_from_jax = partial(interop.engine_params_from_jax, device="cpu")
+network_state_from_jax = partial(interop.network_state_from_jax, device="cpu")
+torch_build = partial(build_scenario, device="cpu")
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,7 @@ EngineParams.  JAX steps take EngineParams as a jit argument and read the
 rings through the Pallas kernel in interpret mode, the port's read."""
 
 import copy
+from functools import partial
 
 import numpy as np
 import pytest
@@ -19,11 +20,18 @@ from pednstream_tpu.env.core import PedNetEnvCore as JaxEnvCore
 from pednstream_tpu.generator import NetworkEnvGenerator as JaxGenerator
 from pednstream_tpu.randomize import randomize_engine_params_batched as jax_draws
 from pednstream_tpu.scenario import build_scenario as jax_build
-from pednstream_tpu_torch.env import PedNetEnvCore, PedNetParallelEnv, build_agent_spec
-from pednstream_tpu_torch.generator import NetworkEnvGenerator
-from pednstream_tpu_torch.interop import (engine_params_from_jax, network_state_from_jax,
-                                          numpy_leaves, tensors_from_jax)
-from pednstream_tpu_torch.scenario import build_scenario as torch_build
+from pednstream_tpu_torch import env as port_env, generator, interop
+from pednstream_tpu_torch.env import PedNetEnvCore, build_agent_spec
+from pednstream_tpu_torch.interop import numpy_leaves
+from pednstream_tpu_torch.scenario import build_scenario
+
+# the port runs on the card unless asked: every CPU test asks
+PedNetParallelEnv = partial(port_env.PedNetParallelEnv, device="cpu")
+NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
+engine_params_from_jax = partial(interop.engine_params_from_jax, device="cpu")
+network_state_from_jax = partial(interop.network_state_from_jax, device="cpu")
+tensors_from_jax = partial(interop.tensors_from_jax, device="cpu")
+torch_build = partial(build_scenario, device="cpu")
 
 torch.set_num_threads(1)
 

@@ -11,6 +11,7 @@ step to the JAX exact path, bit for bit.
 
 import copy
 import os
+from functools import partial
 
 import numpy as np
 import pytest
@@ -20,13 +21,18 @@ import jax
 
 from pednstream_tpu import engine as jax_engine
 from pednstream_tpu.scenario import build_scenario as jax_build
-from pednstream_tpu_torch import build_scenario
+from pednstream_tpu_torch import golden, interop, scenario
 from pednstream_tpu_torch.engine import step_fn
-from pednstream_tpu_torch.golden import FIELDS, TOL, fixture_args, golden_errors
-from pednstream_tpu_torch.interop import (engine_params_from_jax, network_state_from_jax,
-                                          numpy_leaves)
+from pednstream_tpu_torch.golden import FIELDS, TOL, fixture_args
+from pednstream_tpu_torch.interop import numpy_leaves
 
 torch.set_num_threads(1)
+
+# the port runs on the card unless asked: every CPU test asks
+build_scenario = partial(scenario.build_scenario, device="cpu")
+golden_errors = partial(golden.golden_errors, device="cpu")
+engine_params_from_jax = partial(interop.engine_params_from_jax, device="cpu")
+network_state_from_jax = partial(interop.network_state_from_jax, device="cpu")
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 REALWORLD = ("delft", "melbourne")

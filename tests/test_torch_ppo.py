@@ -5,6 +5,7 @@ adam)``, ``PPOAgent.update`` on one stored episode (the same epochs run
 before the KL break, losses and parameters at rtol 1e-4) and checkpoints
 crossing between the packages with the same deterministic actions."""
 
+from functools import partial
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,6 +24,9 @@ from pednstream_tpu_torch.rl import ppo as tppo
 from pednstream_tpu_torch.rl.batched_ppo import BatchedPPOTrainer
 from pednstream_tpu_torch.rl.optim import adam_init, adam_update
 from pednstream_tpu_torch.rl.rl_utils import compute_gae
+
+# the port runs on the card unless asked: every CPU test asks
+PPOAgent = partial(tppo.PPOAgent, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -134,7 +138,7 @@ def test_ppo_agent_update_matches_jax(kl_target, epochs_run):
     kl_target, fewer with a tiny one), the same losses and KL and the same
     updated actor and critic."""
     jag = jppo.PPOAgent(**AGENT, kl_target=kl_target, seed=0)
-    tag = tppo.PPOAgent(**AGENT, kl_target=kl_target, seed=5)
+    tag = PPOAgent(**AGENT, kl_target=kl_target, seed=5)
     tag.actor.load_state_dict(params_from_flax(tag.actor, jax.device_get(jag.actor_params)))
     tag.critic.load_state_dict(params_from_flax(tag.critic, jax.device_get(jag.critic_params)))
     rng = np.random.default_rng(4)
@@ -174,7 +178,7 @@ def test_checkpoints_cross_packages(tmp_path, net_type, fpl, obs_dim):
         agent.reset_hidden()
         return [agent.absolute_action(o, agent.take_action(o, explore=False)) for o in obs]
 
-    src = tppo.PPOAgent(**kw, seed=1)
+    src = PPOAgent(**kw, seed=1)
     src.gate_anchor = "open"
     src.save(str(tmp_path / "port.pkl"))
     dst = jppo.PPOAgent(**kw, seed=2)
@@ -185,7 +189,7 @@ def test_checkpoints_cross_packages(tmp_path, net_type, fpl, obs_dim):
 
     jsrc = jppo.PPOAgent(**kw, seed=3)
     jsrc.save(str(tmp_path / "jax.pkl"))
-    tdst = tppo.PPOAgent(**kw, seed=4)
+    tdst = PPOAgent(**kw, seed=4)
     tdst.load(str(tmp_path / "jax.pkl"))
     got, want = acts(tdst), acts(jsrc)
     for a, b in zip(got, want):
@@ -199,16 +203,16 @@ def test_checkpoints_cross_packages(tmp_path, net_type, fpl, obs_dim):
 def test_load_rebuilds_architecture(tmp_path):
     """A checkpoint of another family rebuilds the modules (ppo.py:336-373);
     a gat checkpoint needs the adjacency the agent was built with."""
-    lstm = tppo.PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, net_type="lstm", seed=0)
+    lstm = PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, net_type="lstm", seed=0)
     lstm.save(str(tmp_path / "lstm.pkl"))
-    att = tppo.PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, seed=1)
+    att = PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, seed=1)
     att.load(str(tmp_path / "lstm.pkl"))
     assert att.net_type == "lstm" and type(att.actor).__name__ == "LSTMPolicy"
     o = np.ones(16, np.float32)
     np.testing.assert_array_equal(att.take_action(o, explore=False),
                                   lstm.take_action(o, explore=False))
-    gat = tppo.PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, net_type="gat", seed=0)
+    gat = PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, net_type="gat", seed=0)
     gat.save(str(tmp_path / "gat.pkl"))
     with pytest.raises(ValueError, match="adjacency"):
-        tppo.PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, seed=1).load(
+        PPOAgent(obs_dim=16, act_dim=4, features_per_link=4, seed=1).load(
             str(tmp_path / "gat.pkl"))

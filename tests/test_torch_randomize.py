@@ -4,6 +4,8 @@ tests/test_randomize_od.py, the port's draws against JAX's in
 distribution, and the port's step under JAX-drawn per-replica
 EngineParams carried across by interop."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -13,14 +15,18 @@ import jax
 from pednstream_tpu import engine as jax_engine
 from pednstream_tpu.generator import NetworkEnvGenerator as JaxGenerator
 from pednstream_tpu.randomize import randomize_engine_params_batched as jax_draws
+from pednstream_tpu_torch import generator, interop
 from pednstream_tpu_torch.engine import simulate, simulate_batched, step_fn
-from pednstream_tpu_torch.generator import NetworkEnvGenerator
-from pednstream_tpu_torch.interop import (engine_params_from_jax, network_state_from_jax,
-                                          numpy_leaves)
+from pednstream_tpu_torch.interop import numpy_leaves
 from pednstream_tpu_torch.randomize import (randomize_engine_params,
                                             randomize_engine_params_batched)
 
 torch.set_num_threads(1)
+
+# the port runs on the card unless asked: every CPU test asks
+NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
+engine_params_from_jax = partial(interop.engine_params_from_jax, device="cpu")
+network_state_from_jax = partial(interop.network_state_from_jax, device="cpu")
 
 DATASET = "butterfly_scC"
 

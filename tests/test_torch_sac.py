@@ -4,6 +4,8 @@ tanh-Gaussian sample with the same standard normals (rtol 1e-5), two
 the JAX steps' noises fed in (rtol 1e-4), the frame stack and
 ``peek_stack`` (exact) and checkpoints crossing between the packages."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,9 @@ import jax.numpy as jnp
 from pednstream_tpu.rl import sac as jsac
 from pednstream_tpu_torch.interop import params_from_flax
 from pednstream_tpu_torch.rl import sac as tsac
+
+# the port runs on the card unless asked: every CPU test asks
+SACAgent = partial(tsac.SACAgent, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -33,7 +38,7 @@ def float32_jax():
 def pair(**kw):
     """A JAX agent and a port agent holding the JAX agent's parameters."""
     j = jsac.SACAgent(OBS, ACT, hidden_dim=16, **kw, seed=0)
-    t = tsac.SACAgent(OBS, ACT, hidden_dim=16, **kw, seed=1)
+    t = SACAgent(OBS, ACT, hidden_dim=16, **kw, seed=1)
     for mod, tree in ((t.actor, j.actor_params), (t.critic, j.critic_params),
                       (t.target_critic, j.target_critic_params)):
         mod.load_state_dict(params_from_flax(mod, jax.device_get(tree)))
@@ -118,7 +123,7 @@ def test_checkpoints_cross_packages(tmp_path):
         agent.reset_hidden()
         return [agent.absolute_action(o, agent.take_action(o, explore=False)) for o in obs]
 
-    src = tsac.SACAgent(OBS, ACT, max_delta=1.5, seed=4, **kw)
+    src = SACAgent(OBS, ACT, max_delta=1.5, seed=4, **kw)
     src.gate_anchor = "open"
     with torch.no_grad():
         src.log_alpha.fill_(-0.3)
@@ -132,7 +137,7 @@ def test_checkpoints_cross_packages(tmp_path):
 
     jsrc = jsac.SACAgent(OBS, ACT, seed=6, **kw)
     jsrc.save(str(tmp_path / "jax.pkl"))
-    tdst = tsac.SACAgent(OBS, ACT, max_delta=9.0, seed=7, **kw)
+    tdst = SACAgent(OBS, ACT, max_delta=9.0, seed=7, **kw)
     tdst.load(str(tmp_path / "jax.pkl"))
     assert tdst.max_delta == jsrc.max_delta
     for a, b in zip(acts(tdst), acts(jsrc)):

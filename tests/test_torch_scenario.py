@@ -5,6 +5,7 @@ routing tables and initial state.  The port never imports JAX."""
 import copy
 import dataclasses
 import inspect
+from functools import partial
 import subprocess
 import sys
 from pathlib import Path
@@ -21,11 +22,14 @@ from pednstream_tpu.env.core import PedNetEnvCore as JaxEnvCore
 from pednstream_tpu.generator import NetworkEnvGenerator as JaxGenerator
 from pednstream_tpu.scenario import build_scenario as jax_build
 from pednstream_tpu_torch import config as torch_config
+from pednstream_tpu_torch import generator, scenario
 from pednstream_tpu_torch.env.core import PedNetEnvCore
-from pednstream_tpu_torch.generator import NetworkEnvGenerator
-from pednstream_tpu_torch.scenario import build_scenario as torch_build
 
 torch.set_num_threads(1)
+
+# the port runs on the card unless asked: every CPU test asks
+NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
+torch_build = partial(scenario.build_scenario, device="cpu")
 
 ROOT = Path(__file__).resolve().parent.parent
 DATASETS = sorted(p.parent.name for p in (ROOT / "data").glob("*/sim_params.yaml"))
@@ -252,10 +256,11 @@ def test_public_defaults_match_jax(which):
     from pednstream_tpu_torch.rl.train import build_agents
 
     jax_fn, torch_fn = {
-        "build_scenario": (jax_build, torch_build),
-        "NetworkEnvGenerator.__init__": (JaxGenerator.__init__, NetworkEnvGenerator.__init__),
+        "build_scenario": (jax_build, scenario.build_scenario),
+        "NetworkEnvGenerator.__init__": (JaxGenerator.__init__,
+                                         generator.NetworkEnvGenerator.__init__),
         "NetworkEnvGenerator.create_network": (JaxGenerator.create_network,
-                                               NetworkEnvGenerator.create_network),
+                                               generator.NetworkEnvGenerator.create_network),
         "PedNetEnvCore.__init__": (JaxEnvCore.__init__, PedNetEnvCore.__init__),
         "PPOAgent.__init__": (jrl.PPOAgent.__init__, trl.PPOAgent.__init__),
         "SACAgent.__init__": (jrl.SACAgent.__init__, trl.SACAgent.__init__),
@@ -279,3 +284,38 @@ def test_state_to_another_device():
     assert moved.cum_in_ring.shape == (3, 32, ts.n_links)
     assert moved.cum_in_ring.device.type == "meta"
     assert st.cum_in_ring.device.type == "cpu"
+
+
+def _entry_point_calls():
+    """Each entry point of the port called with no ``device``."""
+    from pednstream_tpu_torch import interop
+    from pednstream_tpu_torch.env import PedNetParallelEnv
+    from pednstream_tpu_torch.golden import golden_errors
+    from pednstream_tpu_torch.rl import PPOAgent, SACAgent
+    from pednstream_tpu_torch.rl.train import main as train_main
+    from pednstream_tpu_torch.routing import build_routing_tables
+
+    leaves = {"x": np.zeros(3, np.float32)}
+    return {
+        "build_scenario": lambda: scenario.build_scenario(**scenario_args("butterfly_scC")),
+        "NetworkEnvGenerator": lambda: generator.NetworkEnvGenerator(),
+        "PedNetParallelEnv": lambda: PedNetParallelEnv("butterfly_scC"),
+        "PPOAgent": lambda: PPOAgent(obs_dim=16, act_dim=4, features_per_link=4),
+        "SACAgent": lambda: SACAgent(16, 4),
+        "golden_errors": lambda: golden_errors(ROOT / "tests" / "golden" / "butterfly.npz"),
+        "build_routing_tables": lambda: build_routing_tables(None, None, []),
+        "tensors_from_jax": lambda: interop.tensors_from_jax(leaves),
+        "engine_params_from_jax": lambda: interop.engine_params_from_jax(leaves),
+        "network_state_from_jax": lambda: interop.network_state_from_jax(
+            {"cum_in": np.zeros(3), "t": np.array(1)}),
+        "rl.train CLI": lambda: train_main(["--dataset", "butterfly_scC", "--episodes", "1"]),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_entry_point_calls()))
+def test_entry_points_run_on_the_card_unless_asked(entry, monkeypatch):
+    """With no ``device`` every entry point asks for the card: where torch
+    sees none, each raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        _entry_point_calls()[entry]()

@@ -12,6 +12,7 @@ agents do (rtol 1e-5)."""
 
 import json
 import random
+from functools import partial
 
 import numpy as np
 import pytest
@@ -22,8 +23,11 @@ import jax
 from pednstream_tpu.env import PedNetParallelEnv as JaxEnv
 from pednstream_tpu.rl import rl_utils as jax_utils
 from pednstream_tpu.rl.train import build_agents as jax_build_agents
-from pednstream_tpu_torch.env import PedNetParallelEnv
+from pednstream_tpu_torch import env as port_env
 from pednstream_tpu_torch.rl import rl_utils, train
+
+# the port runs on the card unless asked: every CPU test asks
+PedNetParallelEnv = partial(port_env.PedNetParallelEnv, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -140,7 +144,7 @@ def test_baseline_agents_match_jax(dataset, algo):
     butterfly_scC, a separator on long_corridor) act exactly as JAX's on
     the same five observations, the separator's smoothing carried."""
     env, jenv = PedNetParallelEnv(dataset, **ENV), JaxEnv(dataset, **ENV)
-    agents = train.build_agents(env, algo=algo)
+    agents = train.build_agents(env, algo=algo, device="cpu")
     jagents = jax_build_agents(jenv, algo=algo)
     assert set(agents) == set(jagents) == set(env.possible_agents)
     rng = np.random.default_rng(4)
@@ -161,7 +165,8 @@ def _acts_like_jax(save_dir, algo, env):
     ``build_agents`` + ``load_all_agents``: the same deterministic actions
     on the same normalized observation."""
     wrapped = rl_utils.RunningNormalizeWrapper(env)
-    agents = rl_utils.load_all_agents(train.build_agents(wrapped, algo=algo), save_dir,
+    agents = rl_utils.load_all_agents(train.build_agents(wrapped, algo=algo, device="cpu"),
+                                      save_dir,
                                       env=wrapped)
     jwrapped = jax_utils.RunningNormalizeWrapper(JaxEnv("butterfly_scC", **ENV))
     jagents = jax_utils.load_all_agents(jax_build_agents(jwrapped, algo=algo), save_dir,
@@ -181,7 +186,7 @@ def test_on_policy_loop_checkpoints_load_in_jax(tmp_path):
     checkpoint with its validation score that JAX loads."""
     env = PedNetParallelEnv("butterfly_scC", **ENV)
     wrapped = rl_utils.RunningNormalizeWrapper(env)
-    agents = train.build_agents(env, algo="ppo", hidden_dim=16)
+    agents = train.build_agents(env, algo="ppo", hidden_dim=16, device="cpu")
     logged = []
     history = train.train_on_policy_multi_agent(
         wrapped, agents, num_episodes=2, val_freq=1, save_dir=str(tmp_path),
@@ -202,7 +207,7 @@ def test_off_policy_loop_updates_past_warmup(tmp_path):
     and JAX loads the checkpoint."""
     env = PedNetParallelEnv("butterfly_scC", **ENV)
     wrapped = rl_utils.RunningNormalizeWrapper(env)
-    agents = train.build_agents(env, algo="sac", batch_size=8)
+    agents = train.build_agents(env, algo="sac", batch_size=8, device="cpu")
     actor0 = [p.detach().clone() for p in agents["gate_2"].actor.parameters()]
     np.random.seed(0)
     history = train.train_off_policy_multi_agent(
@@ -219,7 +224,8 @@ def test_cli_trains_logs_and_saves(tmp_path):
     """``python -m pednstream_tpu_torch.rl.train`` for one PPO episode:
     one JSONL log line, a checkpoint and the normalization stats."""
     save, log = tmp_path / "ppo", tmp_path / "log.jsonl"
-    train.main(["--dataset", "butterfly_scC", "--episodes", "1", "--action-gap", "60",
+    train.main(["--dataset", "butterfly_scC", "--device", "cpu", "--episodes", "1",
+                "--action-gap", "60",
                 "--save-dir", str(save), "--log-file", str(log)])
     lines = log.read_text().splitlines()
     assert len(lines) == 1 and json.loads(lines[0])["episode"] == 0

@@ -8,6 +8,7 @@ tests/test_zoo_artifacts.py through the port's build_agents and env."""
 
 import json
 import pickle
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -20,9 +21,12 @@ import jax
 from pednstream_tpu.rl.ppo import PPOAgent as JaxPPOAgent
 from pednstream_tpu.rl.rl_utils import RunningNormalizeWrapper as JaxWrapper
 from pednstream_tpu.rl.sac import SACAgent as JaxSACAgent
-from pednstream_tpu_torch.rl.ppo import PPOAgent
+from pednstream_tpu_torch.rl import ppo, sac
 from pednstream_tpu_torch.rl.rl_utils import RunningNormalizeWrapper
-from pednstream_tpu_torch.rl.sac import SACAgent
+
+# the port runs on the card unless asked: every CPU test asks
+PPOAgent = partial(ppo.PPOAgent, device="cpu")
+SACAgent = partial(sac.SACAgent, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -111,9 +115,9 @@ def test_zoo_checkpoint_loads_and_acts_in_port_env(dirname):
     path = ZOO / dirname
     cfg = json.load(open(path / "config.json"))
     assert cfg.get("agents") or cfg.get("net_type"), dirname
-    env = PedNetParallelEnv(dataset, obs_mode="option2", action_gap=15, seed=0)
+    env = PedNetParallelEnv(dataset, obs_mode="option2", action_gap=15, seed=0, device="cpu")
     wrapped = RunningNormalizeWrapper(env)
-    agents = build_agents(wrapped, algo=algo)
+    agents = build_agents(wrapped, algo=algo, device="cpu")
     if cfg.get("agents"):
         assert set(agents) == set(cfg["agents"]), (dirname, set(agents))
     load_all_agents(agents, str(path), env=wrapped)
