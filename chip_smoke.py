@@ -19,6 +19,10 @@ exits non-zero):
    episode's and the PPO and SAC trainers' shapes (those two with
    per-replica shockwave lookbacks) and two odd shapes; float64 at the
    exact path's melbourne shape (full-horizon rings) and an odd shape.
+   Then the per-replica-``t`` form of both instantiations (a random step
+   per replica, some at t < 6 and some past a ring wrap): float32 at the
+   env episode's and the main path's shapes, float64 at an odd shape, each
+   beside the shared-``t`` form on the same operands.
    Each case prints the kernel's device time per launch (a CUDA graph of
    launches timed with CUDA events), the wrapper's host time per call, the
    plain version's time, the bound (each byte moved once, at the card's
@@ -64,6 +68,25 @@ exits non-zero):
    observations (normalized by the shipped stats where present), rtol
    1e-5.
 
+11. hetero: the env of phase 7 with its 256 replicas at 8 different times
+   (32 each, 50 engine steps apart), 100 RL steps through
+   ``batch_step_randomized(..., lockstep=False)`` with no host sync
+   allowed: one launch of the per-replica-``t`` kernel per engine step,
+   mass conserved per replica, ``t`` advanced per replica; run
+   deterministically, each group compared with the same group stepped alone
+   in lockstep from the same state.  Then a float64 exact-parity batch at
+   three different times against its groups in lockstep (the float64
+   per-replica-``t`` form).
+12. evaluate: ``evaluate_agents("45_intersections", ...)`` on the card as
+   ``scripts/train_zoo.py`` evaluates the shipped PPO policy (option2,
+   action_gap 15), with the rule-based and no-control policies, two runs
+   each (run 1 on a randomized network); every run directory is checked
+   (files, T + 1 columns, finite metrics, mass conservation); one more run
+   is read back (``load_simulation``, ``NetworkVisualizer``) against the
+   history the env recorded, exported to HTML and, where matplotlib is
+   installed, drawn; an engine-state checkpoint round-trips bit for bit on
+   the card; the MPC baseline runs one butterfly_scC episode.
+
 It then prints the kernels' record, the card's ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -94,6 +117,12 @@ TRAIN_ITERATIONS = 4
 # the main path's steps before its real operands are taken for phase 3
 KERNEL_REAL_STEPS = 100
 ZOO_RTOL = 1e-5
+HETERO = {"groups": 8, "apart": 50, "rl_steps": 100, "deterministic_steps": 10,
+          "exact_dataset": "butterfly_scC", "exact_steps": 40}
+EVALUATE = {"dataset": "45_intersections", "obs_mode": "option2", "action_gap": 15,
+            "algos": ["ppo", "rule_based", "no_control"], "num_runs": 2,
+            "checkpoint": "artifacts/zoo/ppo_agents_45_intersections",
+            "mpc_dataset": "butterfly_scC", "mpc_action_gap": 60}
 
 
 def emit(phase: str, **fields) -> None:
@@ -183,12 +212,14 @@ OPS_PER_LINK = 16  # the lookback's and the diffusion sum's float operations
 
 
 def history_operands(B: int, H: int, E: int, seed: int, ring_dtype="float32",
-                     per_replica: bool = False) -> list:
+                     per_replica: bool = False, per_replica_t: bool = False) -> list:
     """Random operands of the fused read on the card, made with numpy from
     ``seed``: rings, avg_tt (lags over [0, 3H), a tenth on a half step),
     gamma and tau_shockwave (``[E]``, or ``[B, E]`` when ``per_replica``),
     then t = H + 7 (negative bases on full-horizon rings, slots that wrap),
-    unit_time 10 and windowed for H of at most 64 rows."""
+    or with ``per_replica_t`` one step per replica over [1, 3H + 8], the
+    first few at 1, 2, ... (lags before time 0) and the last past two ring
+    wraps; unit_time 10 and windowed for H of at most 64 rows."""
     import numpy as np
     import torch
 
@@ -202,7 +233,14 @@ def history_operands(B: int, H: int, E: int, seed: int, ring_dtype="float32",
     gamma = rng.uniform(0.001, 0.1, lead + (E,)).astype(ring_dtype)
     tau_sw = rng.integers(0, 3 * H, lead + (E,)).astype(np.int32)
     tensors = [torch.from_numpy(a).to("cuda") for a in (*rings, avg_tt, gamma, tau_sw)]
-    return tensors + [H + 7, unit_time, H <= 64]
+    t = H + 7
+    if per_replica_t:
+        steps = rng.integers(1, 3 * H + 9, B).astype(np.int32)
+        small = min(5, max(B // 2, 1))
+        steps[:small] = np.arange(1, small + 1)
+        steps[-1] = 2 * H + 5
+        t = torch.from_numpy(steps).to("cuda")
+    return tensors + [t, unit_time, H <= 64]
 
 
 def real_operands(scn, steps: int) -> list:
@@ -236,6 +274,7 @@ def read_bound(ops) -> dict:
     item = rings[0].element_size()
     _, _, idx_ci, base, idx_co = lookback(avg_tt.expand(B, E), gamma, tau, t, H, unit_time,
                                           windowed)
+    t_bytes = 4 * B if isinstance(t, torch.Tensor) else 0  # one step per replica
     reads = [(0, idx_ci, None), (1, idx_co, None)] + [(2, base - k, base - k >= 0)
                                                       for k in range(4)]
     lags = sum(int(valid.sum()) for _, _, valid in reads[2:])
@@ -247,7 +286,7 @@ def read_bound(ops) -> dict:
     def distinct(x):
         return x.element_size() * (x.numel() if x.dim() == 2 and x.stride(0) else E)
 
-    other = distinct(avg_tt) + distinct(gamma) + distinct(tau) + 3 * item * B * E
+    other = distinct(avg_tt) + distinct(gamma) + distinct(tau) + 3 * item * B * E + t_bytes
     moved = item * (2 * B * E + lags) + other
     sector_bytes = 32 * torch.unique(sectors).numel() + other
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -260,10 +299,13 @@ def read_bound(ops) -> dict:
 
 def phase_kernel(card: str, scn) -> dict:
     """Each instantiation against the plain version at every path's shape
-    and at the main path's real operands; returns ``{dtype: record}`` for
-    the kernels line (float32: the main path's real operands)."""
+    and at the main path's real operands, with a shared and with a
+    per-replica step; returns ``{launch count key: record}`` for the
+    kernels line (float32: the main path's real operands; per-replica
+    ``t``: the hetero path's shape)."""
     import torch
-    from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_plain
+    from pednstream_tpu_torch.ops import (PER_REPLICA_T, fused_history_reads,
+                                          fused_history_reads_plain)
     from pednstream_tpu_torch.profiling import ZOO_PPO, ZOO_PPO_ENV
 
     H_train = ZOO_PPO_ENV["history_window"]
@@ -276,19 +318,26 @@ def phase_kernel(card: str, scn) -> dict:
              ("random", "float32", (1, 16, 1), False),
              ("random", "float32", (5, 17, 1000), False),
              ("random", "float64", EXACT_SHAPE, False),  # the kernels line's float64 entry
-             ("random", "float64", (3, 40, 70), False)]
+             ("random", "float64", (3, 40, 70), False),
+             # a step per replica; the kernels line's per-replica-t entries
+             # are the hetero path's shape and the float64 one
+             ("per replica t", "float32", ENV_SHAPE, True),
+             ("per replica t", "float32", M, False),
+             ("per replica t", "float64", (3, 40, 70), False)]
     record = {}
     for source, dtype, (B, H, E), per_replica in cases:
         if source == "real":
             ops = real_operands(scn, KERNEL_REAL_STEPS)
         else:
-            ops = history_operands(B, H, E, SEED, dtype, per_replica)
+            ops = history_operands(B, H, E, SEED, dtype, per_replica,
+                                   per_replica_t=source == "per replica t")
+        key = dtype + (PER_REPLICA_T if source == "per replica t" else "")
         before = dict(fused_history_reads.launches)
         got = fused_history_reads(*ops)
         want = fused_history_reads_plain(*ops)
         torch.cuda.synchronize()
-        if fused_history_reads.launches[dtype] != before[dtype] + 1:
-            raise AssertionError(f"a {dtype} call did not launch the {dtype} kernel")
+        if fused_history_reads.launches != {**before, key: before[key] + 1}:
+            raise AssertionError(f"a {key} call did not launch the {key} kernel once")
         err = 0.0
         for name, a, b in zip(("ci", "co", "diff"), got, want):
             if a.dtype != getattr(torch, dtype):
@@ -302,16 +351,27 @@ def phase_kernel(card: str, scn) -> dict:
                   "plain_ms": cuda_ms(lambda: fused_history_reads_plain(*ops))}
         bound = read_bound(ops)
         rings_mb = 3 * ops[0].numel() * ops[0].element_size() / 1e6
+        t = ops[6]
+        if source == "per replica t":
+            # the shared-t form on the same operands, in the same call
+            shared = ops[:6] + [H + 7] + ops[7:]
+            timing["shared_t_device_ms"] = device_ms(lambda: fused_history_reads(*shared))
+            timing["shared_t_bound_ms"] = read_bound(shared)["bound_ms"]
+            t = {"min": int(t.min()), "max": int(t.max()), "below_6": int((t < 6).sum()),
+                 "past_a_wrap": int((t > H).sum())}
+            if not (t["below_6"] and t["past_a_wrap"]):
+                raise AssertionError(f"the per-replica steps {t} miss a case")
         emit("kernel_vs_plain", kernel="fused_history_reads", dtype=dtype, operands=source,
-             B=B, H=H, E=E, t=ops[6], windowed=ops[8], per_replica_gamma_tau=per_replica,
+             B=B, H=H, E=E, t=t, windowed=ops[8], per_replica_gamma_tau=per_replica,
              bitwise_equal=True, max_abs_err=err, **timing, **bound,
              share_of_bound=bound["bound_ms"] / timing["device_ms"],
              share_of_sector_bound=bound["sector_bound_ms"] / timing["device_ms"],
              rings_mb=rings_mb, rings_fit_l2=rings_mb < 50.0, card=card)
-        if (source, dtype) in (("real", "float32"), ("random", "float64")):
-            record.setdefault(dtype, {"max_abs_err": err, "ms": timing["device_ms"],
-                                      **timing, "bound_ms": bound["bound_ms"],
-                                      "bound_by": bound["bound_by"], "library_ms": None})
+        if (source, dtype) in (("real", "float32"), ("random", "float64"),
+                               ("per replica t", "float32"), ("per replica t", "float64")):
+            record.setdefault(key, {"max_abs_err": err, "ms": timing["device_ms"],
+                                    **timing, "bound_ms": bound["bound_ms"],
+                                    "bound_by": bound["bound_by"], "library_ms": None})
     return record
 
 
@@ -357,13 +417,7 @@ def phase_main(card: str, scn) -> int:
                              f"{MAIN['steps']} steps")
     if final.t != 1 + MAIN["steps"]:
         raise AssertionError(f"final t = {final.t}")
-    for name, x in vars(final).items():
-        if not isinstance(x, torch.Tensor):
-            continue
-        if x.device.type != "cuda":
-            raise AssertionError(f"state leaf {name} is on {x.device}")
-        if not bool(torch.isfinite(x).all()) or bool((x < 0).any()):
-            raise AssertionError(f"state leaf {name} is not finite and non-negative")
+    check_state(final)
     # mass conservation: cum_in, cum_out and num_peds each gain one rounded
     # float32 add per step, so their drift is at most 1.5 ulp of the largest
     # cumulative count per step
@@ -399,7 +453,8 @@ def phase_gpu_vs_cpu(card: str) -> int:
         final, _ = simulate(scn, scn.engine_params, scn.init_state(1),
                             GPU_VS_CPU["steps"], record=False)
         launched = dict(fused_history_reads.launches)
-        want = {"float32": GPU_VS_CPU["steps"] if device == "cuda" else 0, "float64": 0}
+        want = {**dict.fromkeys(launched, 0),
+                "float32": GPU_VS_CPU["steps"] if device == "cuda" else 0}
         if launched != want:
             raise AssertionError(f"the {device} rollout launched {launched}, not {want}")
         density[device] = final.density.cpu()
@@ -510,13 +565,7 @@ def phase_env(card: str) -> int:
     done = torch.stack(dones)  # [steps, B]
     if bool(done[:-1].any()) or not bool(done[-1].all()):
         raise AssertionError("done must be true at the last step only")
-    for name, x in vars(states).items():
-        if not isinstance(x, torch.Tensor):
-            continue
-        if x.device.type != "cuda":
-            raise AssertionError(f"state leaf {name} is on {x.device}")
-        if not bool(torch.isfinite(x).all()) or bool((x < 0).any()):
-            raise AssertionError(f"state leaf {name} is not finite and non-negative")
+    check_state(states)
     # per replica, the main path's float32 bound on its own peak count
     peak = states.cum_in.abs().amax(dim=1).clamp(min=1.0)
     mass_err = (states.cum_in - states.cum_out - states.num_peds).abs().amax(dim=1)
@@ -791,6 +840,323 @@ def phase_zoo(card: str) -> None:
     emit("zoo", checkpoints=len(dirs), rtol=ZOO_RTOL, max_abs_err=worst, card=card)
 
 
+def check_launches(key: str, n: int, what: str) -> None:
+    """The fused read launched ``n`` times under ``key`` and under no other
+    key since the counts were set to 0."""
+    from pednstream_tpu_torch.ops import fused_history_reads
+
+    want = {**dict.fromkeys(fused_history_reads.launches, 0), key: n}
+    if fused_history_reads.launches != want:
+        raise AssertionError(f"{what}: launches {fused_history_reads.launches}, expected {want}")
+
+
+def check_state(states) -> None:
+    """Every tensor leaf on the card, finite and non-negative."""
+    import torch
+
+    for name, x in vars(states).items():
+        if not isinstance(x, torch.Tensor):
+            continue
+        if x.device.type != "cuda":
+            raise AssertionError(f"state leaf {name} is on {x.device}")
+        if not bool(torch.isfinite(x).all()) or bool((x < 0).any()):
+            raise AssertionError(f"state leaf {name} is not finite and non-negative")
+
+
+def largest_difference(a, b) -> dict:
+    """``{leaf: max abs difference}`` over the tensor leaves of two states
+    that differ (empty when they are equal bit for bit)."""
+    import torch
+
+    out = {}
+    for name, x in vars(a).items():
+        y = getattr(b, name)
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            out[name] = (x.double() - y.double()).abs().max().item()
+    return out
+
+
+def phase_hetero(card: str) -> dict:
+    """Replicas at different times in one batch; returns the launches of
+    the per-replica-t forms ``{count key: launches}``."""
+    import torch
+    from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, concat_states
+    from pednstream_tpu_torch import simulate, step_fn
+    from pednstream_tpu_torch.env import PedNetEnvCore, PedNetParallelEnv
+    from pednstream_tpu_torch.ops import PER_REPLICA_T
+    from pednstream_tpu_torch.randomize import randomize_engine_params_batched
+
+    env = PedNetParallelEnv(ENV["dataset"], od_randomize=True, device="cuda")
+    scn, core, B = env.scn, env.core, ENV["batch"]
+    G, apart, steps = HETERO["groups"], HETERO["apart"], HETERO["rl_steps"]
+    per = B // G
+    if scn.H != ENV["steps"] + 1 or scn.n_links != ENV["links"] or core.action_gap != 1:
+        raise AssertionError(f"H={scn.H}, links={scn.n_links}, action_gap={core.action_gap}")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    eps = randomize_engine_params_batched(scn, g, B)
+    if eps.demand.dim() != 3 or eps.od_table.dim() != 3:
+        raise AssertionError("the randomized worlds carry no per-replica demand tables")
+    bounds = {a: [torch.as_tensor(x, device="cuda") for x in
+                  (env.action_space(a).low, env.action_space(a).high)]
+              for a in env.possible_agents}
+
+    def actions(n=B):
+        return {a: lo + (hi - lo) * torch.rand((n,) + lo.shape, generator=g, device="cuda")
+                for a, (lo, hi) in bounds.items()}
+
+    # the whole batch stepped in lockstep; every `apart` steps one more
+    # group of 32 is set aside at the time it has reached
+    states, _ = core.batch_reset(B)
+    groups = []
+    for k in range(G):
+        groups.append(states.take(slice(k * per, (k + 1) * per)))
+        if k < G - 1:
+            for _ in range(apart):
+                states = core.batch_step_randomized(states, actions(), eps, g)[0]
+    start = concat_states(groups)
+    want_t = torch.arange(G, device="cuda").repeat_interleave(per) * apart + 1
+    if start.t.dtype != torch.int32 or not torch.equal(start.t, want_t.int()):
+        raise AssertionError(f"start times {start.t.tolist()}")
+
+    # deterministic: the batch at 8 times against each group alone in lockstep
+    det = PedNetEnvCore(scn, core.spec, stochastic=False)
+    D = HETERO["deterministic_steps"]
+    fixed = [actions() for _ in range(D)]
+    het = start.take(slice(None))
+    reset_counts()
+    for a in fixed:
+        het = det.batch_step_randomized(het, a, eps, lockstep=False)[0]
+    check_launches("float32" + PER_REPLICA_T, D, "deterministic het steps")
+    differences = {}
+    for k in range(G):
+        sl = slice(k * per, (k + 1) * per)
+        alone = start.take(sl).replace(t=k * apart + 1)
+        eps_k = eps.take(sl)
+        for a in fixed:
+            alone = det.batch_step_randomized(alone, {n: x[sl] for n, x in a.items()}, eps_k)[0]
+        if alone.t != k * apart + 1 + D:
+            raise AssertionError(f"group {k} ended at t={alone.t}")
+        diff = largest_difference(het.take(sl).replace(t=alone.t), alone)
+        if diff:
+            differences[f"group {k}"] = diff
+    worst = max((v for d in differences.values() for v in d.values()), default=0.0)
+    if worst > GPU_VS_CPU["atol"]:
+        raise AssertionError(f"het batch vs its groups in lockstep: {differences}")
+
+    # the path: stochastic, 100 RL steps, no host sync
+    states = start
+    for _ in range(3):  # warm-up on a copy
+        warm = core.batch_step_randomized(start.take(slice(None)), actions(), eps, g,
+                                          lockstep=False)[0]
+    del warm
+    torch.cuda.synchronize()
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    any_done = torch.zeros((), dtype=torch.bool, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps):
+            states, obs, rewards, done = core.batch_step_randomized(
+                states, actions(), eps, g, lockstep=False)
+            for x in (*obs.values(), *rewards.values()):
+                finite = finite & torch.isfinite(x).all()
+            any_done = any_done | done.any()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    key = "float32" + PER_REPLICA_T
+    check_launches(key, steps, "het rollout")
+    launches = {key: steps}
+    if not bool(finite) or bool(any_done):
+        raise AssertionError("a non-finite observation or reward, or an early done")
+    if not torch.equal(states.t, (want_t + steps).int()):
+        raise AssertionError(f"end times {states.t.tolist()}")
+    check_state(states)
+    # per replica, the main path's float32 bound over its own steps so far
+    peak = states.cum_in.abs().amax(dim=1).clamp(min=1.0)
+    mass_err = (states.cum_in - states.cum_out - states.num_peds).abs().amax(dim=1)
+    tol = (states.t - 1) * 1.5 * 2.0 ** -23 * peak
+    if bool((mass_err > tol).any()):
+        raise AssertionError(f"mass not conserved: worst excess {(mass_err - tol).max().item()}")
+    emit("hetero", dataset=ENV["dataset"], links=scn.n_links, batch=B, groups=G,
+         steps_apart=apart, rl_steps=steps, history=scn.H, seconds=seconds,
+         env_steps_per_s=steps * B / seconds, kernel_launches=steps,
+         t_start=[k * apart + 1 for k in range(G)], t_end=states.t[::per].tolist(),
+         max_mass_err=mass_err.max().item(), deterministic_steps=D,
+         groups_equal_lockstep_bitwise=not differences,
+         largest_difference_from_lockstep=differences, card=card)
+
+    # float64 exact parity: three times in one batch against each alone
+    args = NetworkEnvGenerator().scenario_args(HETERO["exact_dataset"])
+    args["params"]["seed"] = GPU_VS_CPU["demand_seed"]
+    xscn = build_scenario(**args, ftype=torch.float64, exact_parity=True, device="cuda")
+    ep, n = xscn.engine_params, HETERO["exact_steps"]
+    parts = [simulate(xscn, ep, xscn.init_state(2), k, record=False)[0] for k in (0, 7, 90)]
+    het = concat_states(parts)
+    reset_counts()
+    for _ in range(n):
+        het = step_fn(xscn, ep, het, record=False)[0]
+    key64 = "float64" + PER_REPLICA_T
+    check_launches(key64, n, "float64 het steps")
+    launches[key64] = n
+    for _ in range(n):
+        parts = [step_fn(xscn, ep, p, record=False)[0] for p in parts]
+    diff = largest_difference(het, concat_states(parts))
+    if diff:
+        raise AssertionError(f"float64 het batch differs from its groups: {diff}")
+    emit("hetero_exact", dataset=HETERO["exact_dataset"], links=xscn.n_links, batch=het.batch,
+         t_end=het.t.tolist(), steps=n, float64_kernel_launches=n,
+         equal_lockstep_bitwise=True, card=card)
+    return launches
+
+
+def phase_evaluate(card: str) -> int:
+    """The evaluation harness on the card; returns the float32 launches."""
+    import importlib.util
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pednstream_tpu_torch.env import PedNetParallelEnv
+    from pednstream_tpu_torch.io import OutputHandler
+    from pednstream_tpu_torch.ops import fused_history_reads
+    from pednstream_tpu_torch.rl import evaluate
+    from pednstream_tpu_torch.rl.metrics import evaluate_run
+    from pednstream_tpu_torch.rl.train import build_agents
+    from pednstream_tpu_torch.utils import load_engine_state, save_engine_state
+    from pednstream_tpu_torch.viz import NetworkVisualizer, export_interactive_html
+
+    cfg = EVALUATE
+    gap = cfg["action_gap"]
+    save_seconds = [0.0]
+    save = OutputHandler.save_scenario_state
+
+    def timed_save(self, *args, **kw):
+        t0 = time.perf_counter()
+        save(self, *args, **kw)
+        save_seconds[0] += time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        OutputHandler.save_scenario_state = timed_save
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            results = evaluate.evaluate_agents(
+                cfg["dataset"], cfg["algos"], num_runs=cfg["num_runs"], output_dir=tmp,
+                obs_mode=cfg["obs_mode"], action_gap=gap,
+                checkpoint_dirs={"ppo": str(ROOT / cfg["checkpoint"])}, device="cuda")
+        finally:
+            OutputHandler.save_scenario_state = save
+        seconds = time.perf_counter() - t0
+        T = ENV["steps"]
+        runs = len(cfg["algos"]) * cfg["num_runs"]
+        engine_steps = runs * -(-T // gap) * gap
+        check_launches("float32", engine_steps, "evaluate")
+        launches = engine_steps
+        rewards = {}
+        for algo in cfg["algos"]:
+            rows = results[algo]
+            if [r["run"] for r in rows] != list(range(cfg["num_runs"])):
+                raise AssertionError(f"{algo}: runs {rows}")
+            rewards[algo] = [r["total_reward"] for r in rows]
+            for r in rows:
+                data = OutputHandler.load_simulation(r["save_dir"])
+                if set(data) != {"link_data", "node_data", "network_params"}:
+                    raise AssertionError(f"{r['save_dir']} holds {sorted(data)}")
+                if data["network_params"]["simulation_steps"] != T:
+                    raise AssertionError("the saved horizon changed")
+                for link, entry in data["link_data"].items():
+                    n_in, n_out, n = (np.asarray(entry[k]) for k in (
+                        "cumulative_inflow", "cumulative_outflow", "num_pedestrians"))
+                    if not n_in.shape == n_out.shape == n.shape == (T + 1,):
+                        raise AssertionError(f"{link}: {n_in.shape} columns, expected {T + 1}")
+                    # float32 counts: the main path's bound on the link's peak
+                    tol = T * 1.5 * 2.0 ** -23 * max(n_in.max(), 1.0)
+                    if np.abs(n_in - n_out - n).max() > tol:
+                        raise AssertionError(f"{link}: mass not conserved in the saved run")
+                numbers = [v for k, v in r.items() if "." in k] + [r["total_reward"]]
+                if len(numbers) < 6 or not all(math.isfinite(v) for v in numbers):
+                    raise AssertionError(f"non-finite metrics {r}")
+        emit("evaluate", dataset=cfg["dataset"], algos=cfg["algos"], runs=runs,
+             action_gap=gap, engine_steps=engine_steps, seconds=seconds,
+             env_steps_per_s=engine_steps / seconds, save_seconds=save_seconds[0],
+             kernel_launches=launches, total_reward=rewards,
+             table=evaluate.summarize(results).splitlines(), card=card)
+
+        # one more run, its recorded history kept, read back from the disk
+        env = PedNetParallelEnv(cfg["dataset"], obs_mode=cfg["obs_mode"], action_gap=gap,
+                                seed=SEED, record_history=True, device="cuda")
+        reset_counts()
+        evaluate.rollout_and_save(env, build_agents(env, algo="no_control"),
+                                  str(Path(tmp) / "kept"))
+        launches += fused_history_reads.launches["float32"]
+        check_launches("float32", -(-T // gap) * gap, "the kept run")
+        check_on_card("history", env._history)
+        recorded = {k: torch.cat([getattr(h, k) for h in env._history])[:T, 0].cpu().numpy()
+                    for k in ("density", "cum_in", "num_peds", "speed")}
+        run_dir = str(Path(tmp) / "kept")
+        data = OutputHandler.load_simulation(run_dir)
+        viz = NetworkVisualizer(simulation_dir=run_dir)
+        names = {"density": "density", "cum_in": "cumulative_inflow",
+                 "num_peds": "num_pedestrians", "speed": "speed"}
+        for e, (u, v) in enumerate(env.scn.topo.link_nodes):
+            link = f"{int(u)}-{int(v)}"
+            for field, saved in names.items():
+                want = recorded[field][:, e].astype(np.float64)
+                for got in (np.asarray(data["link_data"][link][saved]), viz._series(link, saved)):
+                    if got.shape != (T + 1,) or not np.array_equal(got[1:], want):
+                        raise AssertionError(f"{link} {saved}: read back != recorded")
+        metrics = evaluate_run(run_dir)
+        html = export_interactive_html(simulation_dir=run_dir,
+                                       out_path=str(Path(tmp) / "map.html"))
+        html_bytes = Path(html).stat().st_size
+        if html_bytes < 10_000:
+            raise AssertionError(f"the HTML map holds {html_bytes} bytes")
+        snapshot = "matplotlib not installed: no snapshot drawn"
+        if importlib.util.find_spec("matplotlib") is not None:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            png = Path(tmp) / "snapshot.png"
+            viz.visualize_network_state(T // 2, save_path=str(png))
+            snapshot = f"matplotlib snapshot of {png.stat().st_size} bytes"
+
+        # engine-state checkpoint: every leaf back bit for bit on the card
+        state = env._state
+        path = str(Path(tmp) / "state.npz")
+        save_engine_state(state, path)
+        back = load_engine_state(path, env.scn.init_state(1))
+        check_on_card("restored", back)
+        if back.t != state.t or largest_difference(state, back):
+            raise AssertionError("the restored engine state differs")
+        emit("evaluate_readback", links=env.scn.n_links, columns=T + 1,
+             fields=sorted(names.values()), metrics=sorted(metrics), html_bytes=html_bytes,
+             snapshot=snapshot, checkpoint_bitwise=True, card=card)
+
+        # the MPC baseline: host search per action, state read from the card
+        reset_counts()
+        t0 = time.perf_counter()
+        mpc = evaluate.evaluate_agents(
+            cfg["mpc_dataset"], ["optimization"], num_runs=1, output_dir=tmp,
+            obs_mode=cfg["obs_mode"], action_gap=cfg["mpc_action_gap"], device="cuda")
+        mpc_seconds = time.perf_counter() - t0
+        (row,) = mpc["optimization"]
+        mpc_launches = fused_history_reads.launches["float32"]
+        check_launches("float32", mpc_launches, "mpc")
+        actions = mpc_launches // cfg["mpc_action_gap"]
+        if not actions or not math.isfinite(row["total_reward"]):
+            raise AssertionError(f"mpc: {row}")
+        launches += mpc_launches
+        emit("evaluate_mpc", dataset=cfg["mpc_dataset"], action_gap=cfg["mpc_action_gap"],
+             actions=actions, seconds=mpc_seconds, seconds_per_action=mpc_seconds / actions,
+             total_reward=row["total_reward"], throughput=row["throughput.throughput"],
+             card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -816,8 +1182,11 @@ def main() -> int:
          ptxas=[ln.strip() for ln in info["log"].splitlines() if "registers" in ln])
 
     scn = main_scenario()
+    from pednstream_tpu_torch.ops import PER_REPLICA_T
+
     record = phase_kernel(card, scn)
-    # each path's launches of each instantiation, counted from 0
+    # each path's launches of each form of the kernel, counted from 0
+    t_main = time.perf_counter()
     launches = {"float32": {"main": phase_main(card, scn),
                             "gpu_vs_cpu": phase_gpu_vs_cpu(card)},
                 "float64": {"golden": phase_golden(card)}}
@@ -826,14 +1195,25 @@ def main() -> int:
     launches["float32"]["ppo_train"] = phase_ppo_train(card, env)
     launches["float32"]["sac_train"] = phase_sac_train(card, env)
     phase_zoo(card)
+    del env
+    seconds = {"earlier_paths": time.perf_counter() - t_main}
+    t0 = time.perf_counter()
+    for key, n in phase_hetero(card).items():
+        launches[key] = {"hetero": n}
+    seconds["hetero"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["float32"]["evaluate"] = phase_evaluate(card)
+    seconds["evaluate"] = time.perf_counter() - t0
+    emit("seconds_per_path", **seconds, card=card)
 
     print(json.dumps({"kernels": [{
-        "name": "fused_history_reads", "route": "cuda", "dtype": dtype,
+        "name": "fused_history_reads", "route": "cuda", "dtype": key.removesuffix(PER_REPLICA_T),
+        "t": "per replica" if key.endswith(PER_REPLICA_T) else "shared",
         "source": "pednstream_tpu_torch/csrc/ncurve.cu",
         "replaces": "pednstream_tpu/ops/ncurve.py:180",
-        "launches": sum(launches[dtype].values()), "launches_per_path": launches[dtype],
-        **record[dtype],
-    } for dtype in ("float32", "float64")]}), flush=True)
+        "launches": sum(launches[key].values()), "launches_per_path": launches[key],
+        **record[key],
+    } for key in launches]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,16 +8,20 @@ scenario compiler (config, topology, demand, routing tables, scenario,
 generator, lp_solver), the engine's float32 fast path and float64
 exact-parity path (engine, fd, routing), per-replica domain randomization
 (randomize), the RL env core and its PettingZoo wrapper (env), the
-policy networks, PPO/SAC agents, batched PPO and SAC trainers and training
-drivers (rl) and the fused N-curve history-read kernel (ops,
-csrc/ncurve.cu).
+policy networks, PPO/SAC agents, batched PPO and SAC trainers, training
+drivers, evaluation harness, offline metrics, MPC baseline and adapters
+(rl), the fused N-curve history-read kernel (ops, csrc/ncurve.cu), the
+reference-format output handler (io), the visualizers (viz), checkpoints,
+logging and profiling helpers (utils, profiling) and the object-style
+``Network`` facade (network).
 """
 
 from .config import load_config
 from .engine import simulate, simulate_batched, step_fn
 from .generator import NetworkEnvGenerator
+from .network import Network
 from .scenario import Scenario, build_scenario
-from .state import EngineParams, NetworkState, StepOutputs
+from .state import EngineParams, NetworkState, StepOutputs, concat_states
 
 __all__ = [
     "load_config",
@@ -30,4 +34,6 @@ __all__ = [
     "EngineParams",
     "NetworkState",
     "StepOutputs",
+    "concat_states",
+    "Network",
 ]

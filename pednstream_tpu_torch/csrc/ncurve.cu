@@ -15,6 +15,12 @@
 //   diff   = ((t0 + t1) + t2) + t3,  tk = coefs[k] * inflow_ring[b, (base-k) mod H, e],
 //            base = t - 1 - tau, and tk = 0 where base - k < 0.
 //
+// t is the step being executed: one int for a lockstep batch, or one int
+// per replica (t_vec, [B]) where the replicas sit at different times, as
+// under the JAX package's vmap over a per-replica t.  blockIdx.y is the
+// replica, so the per-replica read is uniform over the block and costs
+// 4 B per replica, not per link.
+//
 // Two instantiations of one body: float rings (the batched fast path) and
 // double rings (the exact-parity anchor, where each float32 coef is widened
 // exactly before its product, as pednstream_tpu/engine.py:307-314 does).
@@ -69,6 +75,7 @@ struct HistoryArgs {
     const T* gamma;       // [E] or [B, E], replica stride gamma_stride
     const int* tau_shockwave;
     long long avg_tt_stride, gamma_stride, tau_stride;
+    const int* t_vec;  // [B] per-replica step, or null: every replica is at t
     T* out;  // [3, B, E]: ci, co, diff
     int B, H, E, t, windowed;
     float unit_time;
@@ -82,6 +89,7 @@ __global__ void history_reads_kernel(const HistoryArgs<T> a) {
     const int H = a.H;
     const long long E = a.E;
     const long long be = b * E + e;
+    const int t = a.t_vec ? __ldg(a.t_vec + b) : a.t;
 
     const float tt = __ldg(a.avg_tt + b * a.avg_tt_stride + e);
     const float g = to_f32(__ldg(a.gamma + b * a.gamma_stride + e));
@@ -91,11 +99,11 @@ __global__ void history_reads_kernel(const HistoryArgs<T> a) {
         tau = min(tau, H - 6);
         tau_s = min(tau_s, H - 1);
     }
-    const int base = a.t - 1 - tau;
+    const int base = t - 1 - tau;
     // idx_ci = max(t - tau, 0) = base + 1 when base >= 0, else 0
     const int base_slot = base >= 0 ? base % H : 0;
     const int ci_slot = base >= 0 ? (base_slot + 1 == H ? 0 : base_slot + 1) : 0;
-    const int co_slot = max(a.t - tau_s, 0) % H;
+    const int co_slot = max(t - tau_s, 0) % H;
 
     const long long col = (long long)b * H * E + e;
     const T ci = __ldg(a.cum_in_ring + col + ci_slot * E);
@@ -128,12 +136,12 @@ template <typename T>
 int launch_history(const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
                    const void* avg_tt, long long avg_tt_stride, const void* gamma,
                    long long gamma_stride, const void* tau_shockwave, long long tau_stride,
-                   void* out, int B, int H, int E, int t, float unit_time, int windowed,
-                   void* stream) {
+                   void* out, int B, int H, int E, int t, const void* t_vec, float unit_time,
+                   int windowed, void* stream) {
     if (B == 0 || E == 0) return 0;
     HistoryArgs<T> a{(const T*)cum_in_ring, (const T*)cum_out_ring, (const T*)inflow_ring,
                      (const float*)avg_tt, (const T*)gamma, (const int*)tau_shockwave,
-                     avg_tt_stride, gamma_stride, tau_stride, (T*)out,
+                     avg_tt_stride, gamma_stride, tau_stride, (const int*)t_vec, (T*)out,
                      B, H, E, t, windowed, unit_time};
     // one warp-aligned tile of links per block, one block row per replica
     const int threads = E >= 256 ? 256 : (E + 31) / 32 * 32;
@@ -148,25 +156,27 @@ int launch_history(const void* cum_in_ring, const void* cum_out_ring, const void
 // double in the second; avg_tt float32, gamma of the rings' type and
 // tau_shockwave int32, each [E] or [B, E] with unit stride along the links
 // and the given replica stride (0 or E); out [3, B, E] of the rings' type
-// (ci, co, diff).  windowed is 0 or 1.  Each launches on `stream` (a
-// cudaStream_t) and returns cudaGetLastError(): 0 when the launch was
-// accepted.
+// (ci, co, diff).  t_vec is null (every replica at step t) or int32 [B] on
+// the device (t is then ignored).  windowed is 0 or 1.  Each launches on
+// `stream` (a cudaStream_t) and returns cudaGetLastError(): 0 when the
+// launch was accepted.
 extern "C" int ncurve_history_reads(
     const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
     const void* avg_tt, long long avg_tt_stride, const void* gamma, long long gamma_stride,
     const void* tau_shockwave, long long tau_stride, void* out, int B, int H, int E, int t,
-    float unit_time, int windowed, void* stream) {
+    const void* t_vec, float unit_time, int windowed, void* stream) {
     return launch_history<float>(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, avg_tt_stride,
                                  gamma, gamma_stride, tau_shockwave, tau_stride, out, B, H, E,
-                                 t, unit_time, windowed, stream);
+                                 t, t_vec, unit_time, windowed, stream);
 }
 
 extern "C" int ncurve_history_reads_f64(
     const void* cum_in_ring, const void* cum_out_ring, const void* inflow_ring,
     const void* avg_tt, long long avg_tt_stride, const void* gamma, long long gamma_stride,
     const void* tau_shockwave, long long tau_stride, void* out, int B, int H, int E, int t,
-    float unit_time, int windowed, void* stream) {
+    const void* t_vec, float unit_time, int windowed, void* stream) {
     return launch_history<double>(cum_in_ring, cum_out_ring, inflow_ring, avg_tt,
                                   avg_tt_stride, gamma, gamma_stride, tau_shockwave,
-                                  tau_stride, out, B, H, E, t, unit_time, windowed, stream);
+                                  tau_stride, out, B, H, E, t, t_vec, unit_time, windowed,
+                                  stream);
 }

@@ -4,9 +4,12 @@ One step is ``network_loading(t)`` of the reference (SURVEY.md §3.2) over
 all links and nodes at once: sending flows from state t-1, receiving flows
 (which need the sending flow of the reverse link), the padded per-node
 merge/diverge solve, the cumulative-curve write-back and the density/FD
-update.  Every state leaf carries a leading replica axis ``B``; ``t`` is a
-Python int shared by the lockstep batch (``NetworkState.t``), so the whole
-batch advances by one call per step.
+update.  Every state leaf carries a leading replica axis ``B``, and the
+whole batch advances by one call per step.  ``NetworkState.t`` is a Python
+int shared by a lockstep batch, or an int32 ``[B]`` tensor when the
+replicas sit at different times: ring rows are then written and read, and
+demand columns gathered, per replica (what XLA makes of the JAX engine's
+``ring.at[t % H].set`` under ``vmap``), with no host read of ``t``.
 
 The lookback and the three per-link ring reads come from one
 :func:`ops.fused_history_reads` call per step (a CUDA kernel on the card,
@@ -40,7 +43,7 @@ per replica (every leaf with a leading ``B``, ``randomize``): the step
 indexes the last axes only.
 
 ``step_fn`` updates the ring buffers of the state it is given in place
-(``ring[:, t % H] = x``): the state it returns shares them, and the old
+(``ring[:, t % H] = x``, a ``scatter_`` for a per-replica ``t``): the state it returns shares them, and the old
 state must not be stepped again.
 """
 
@@ -104,11 +107,29 @@ def _binom(n, p, gen: Optional[torch.Generator], stochastic: bool, mode: str = "
     return binom_fast(nf.to(_f32), p.to(_f32), u, z).to(nf.dtype)
 
 
-def _column(x: torch.Tensor, t: int) -> torch.Tensor:
+def _column(x: torch.Tensor, t) -> torch.Tensor:
     """Column ``t`` of ``x``'s last (time) axis, clamped into range as the
     JAX engine's traced index is: an RL step whose ``action_gap`` engine
-    steps run past the horizon reads the last column."""
-    return x[..., min(max(t, 0), x.shape[-1] - 1)]
+    steps run past the horizon reads the last column.  With a per-replica
+    ``t [B]``, replica b reads its own column of ``x [N, T+1]`` (shared) or
+    ``x [B, N, T+1]`` (per-replica tables); the result is ``[B, N]``."""
+    last = x.shape[-1] - 1
+    if not isinstance(t, torch.Tensor):
+        return x[..., min(max(t, 0), last)]
+    col = torch.clamp(t, 0, last).long()
+    if x.dim() == 2:
+        return x.index_select(1, col).T
+    return x.gather(2, col.view(-1, 1, 1).expand(-1, x.shape[1], 1)).squeeze(2)
+
+
+def _write_row(ring: torch.Tensor, t, period: int, value: torch.Tensor) -> None:
+    """``ring[b, t_b % period] = value[b]`` in place: one row slice for a
+    shared ``t``, a scatter along the row axis for a per-replica one."""
+    if isinstance(t, torch.Tensor):
+        row = torch.remainder(t, period).long().view(-1, 1, 1).expand(-1, 1, ring.shape[2])
+        ring.scatter_(1, row, value.unsqueeze(1))
+    else:
+        ring[:, t % period] = value
 
 
 def _rev(scn, x):
@@ -120,7 +141,7 @@ def _area(scn, ep: EngineParams, st: NetworkState):
     return torch.where(scn.is_separator, ep.length * st.sep_width, ep.length * ep.width)
 
 
-def _history(scn, ep: EngineParams, st: NetworkState, t: int):
+def _history(scn, ep: EngineParams, st: NetworkState, t):
     """The lookback (tau link.py:260, diffusion coefficients link.py:199-214,
     shockwave lookback link.py:380, with the windowed-ring clamps) and the
     three ring reads of this step in one fused kernel
@@ -135,9 +156,10 @@ def _history(scn, ep: EngineParams, st: NetworkState, t: int):
     return {"tau_shock": tau_shock, "ci": ci, "co": co, "diff": diff}
 
 
-def _sending_flows(scn, ep: EngineParams, st: NetworkState, t: int, hist,
+def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
                    gen, stochastic: bool):
-    """Link.cal_sending_flow(t-1) over all links (link.py:216-370).
+    """Link.cal_sending_flow(t-1) over all links (link.py:216-370); ``t`` is
+    an int or a per-replica ``[B, 1]``.
 
     Dtype staging mirrors the reference's NumPy promotion: density,
     congestion and release factors and the diffusion coefficient are
@@ -194,10 +216,11 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t: int, hist,
     return S, shared_density
 
 
-def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t: int, S, hist,
+def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, S, hist,
                      gen, stochastic: bool):
     """cal_receiving_flow(_with_reverse) (link.py:372-416) and the
-    Separator variant (link.py:480-512)."""
+    Separator variant (link.py:480-512); ``t`` is an int or a per-replica
+    ``[B, 1]``."""
     dt = scn.unit_time
     area = _area(scn, ep, st)
     cum_out_at = hist["co"]
@@ -255,7 +278,7 @@ def _host_lp(scn, s_pad, r_pad, phi):
     return q_in, q_out
 
 
-def _node_solve(scn, ep: EngineParams, t: int, S, R, phi_c=None, phi=None):
+def _node_solve(scn, ep: EngineParams, t, S, R, phi_c=None, phi=None):
     """Padded merge/diverge over all nodes at once (node.py:164-300).
 
     Gathers per-node sending/receiving vectors ``[B, N, M]`` (with the
@@ -313,7 +336,7 @@ def _node_solve(scn, ep: EngineParams, t: int, S, R, phi_c=None, phi=None):
     return inflow_e, outflow_e, virt_dep, virt_arr
 
 
-def _update_link_states(scn, ep: EngineParams, st: NetworkState, t: int,
+def _update_link_states(scn, ep: EngineParams, st: NetworkState, t,
                         inflow_e, outflow_e, gen, stochastic: bool):
     """Density and FD speed/travel-time update (network.py:257-264,
     link.py:133-188, Separator variant link.py:430-452).  Writes this
@@ -345,19 +368,26 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t: int,
     # rolling average travel time over the last W steps (link.py:84-91,183-186);
     # the oldest slot is read before this step's value overwrites it
     run_sum = st.tt_run_sum + travel_time
-    if t >= W:
+    if isinstance(t, torch.Tensor):
+        # per replica: its own oldest slot, and the t >= W branch by where
+        slot = torch.remainder(t - W, W).long().view(-1, 1, 1).expand(-1, 1, run_sum.shape[1])
+        full = (t >= W).unsqueeze(1)
+        run_sum = torch.where(full, run_sum - st.tt_ring.gather(1, slot).squeeze(1), run_sum)
+        avg_tt = torch.where(full, run_sum / W, ep.travel_time0)
+    elif t >= W:
         run_sum = run_sum - st.tt_ring[:, (t - W) % W]
         avg_tt = run_sum / W
     else:
         avg_tt = ep.travel_time0.expand_as(run_sum)
-    st.tt_ring[:, t % W] = travel_time
+    _write_row(st.tt_ring, t, W, travel_time)
     return num_peds, density, v, travel_time, link_flow, avg_tt, run_sum
 
 
 def step_fn(scn, ep: EngineParams, st: NetworkState,
             gen: Optional[torch.Generator] = None, stochastic: bool = False,
             record: bool = True) -> Tuple[NetworkState, Optional[StepOutputs]]:
-    """One ``network_loading(t)`` step of the whole lockstep batch.
+    """One ``network_loading(t)`` step of the whole batch, lockstep (an int
+    ``st.t``) or with each replica at its own time (an int32 ``[B]`` one).
 
     ``gen`` (on the state's device) is required when ``stochastic``.  The
     rings of ``st`` are updated in place and shared with the returned
@@ -368,12 +398,14 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
         raise ValueError("a stochastic step needs a torch.Generator")
     t = st.t
     H = scn.H
+    # against per-link values a per-replica t stands as [B, 1]
+    t_link = t.unsqueeze(1) if isinstance(t, torch.Tensor) else t
 
     # 0) the three ring lookbacks in one fused kernel pass
     hist = _history(scn, ep, st, t)
 
     # 1) sending flows from state t-1
-    S, shared_density = _sending_flows(scn, ep, st, t, hist, gen, stochastic)
+    S, shared_density = _sending_flows(scn, ep, st, t_link, hist, gen, stochastic)
 
     # 2) dynamic turning fractions (path_finder.py:717-737): dense for the
     #    exact and "optimal" solves, else compact over the routed nodes
@@ -394,7 +426,7 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
         phi = ep.phi_base
 
     # 3) receiving flows (need S of the reverse links)
-    R = _receiving_flows(scn, ep, st, t, S, hist, gen, stochastic)
+    R = _receiving_flows(scn, ep, st, t_link, S, hist, gen, stochastic)
 
     # 4) node merge/diverge and write-back
     inflow_e, outflow_e, virt_dep, virt_arr = _node_solve(scn, ep, t, S, R, phi_c, phi)
@@ -403,9 +435,9 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     #    the inflow ring feeds the fused read's diffusion taps
     cum_in = st.cum_in + inflow_e
     cum_out = st.cum_out + outflow_e
-    st.cum_in_ring[:, t % H] = cum_in
-    st.cum_out_ring[:, t % H] = cum_out
-    st.inflow_ring[:, t % H] = inflow_e
+    _write_row(st.cum_in_ring, t, H, cum_in)
+    _write_row(st.cum_out_ring, t, H, cum_out)
+    _write_row(st.inflow_ring, t, H, inflow_e)
 
     # 6) density, speed and travel-time updates
     num_peds, density, speed, travel_time, link_flow, avg_tt, run_sum = (
@@ -446,8 +478,8 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
 def simulate_batched(scn, ep: EngineParams, states: NetworkState, num_steps: int,
                      gen: Optional[torch.Generator] = None,
                      stochastic: bool = False) -> NetworkState:
-    """Lockstep rollout of the batch for ``num_steps`` steps; returns the
-    final state.  The rings of ``states`` are advanced in place."""
+    """Rollout of the batch for ``num_steps`` steps; returns the final
+    state.  The rings of ``states`` are advanced in place."""
     for _ in range(num_steps):
         states, _ = step_fn(scn, ep, states, gen, stochastic, record=False)
     return states

@@ -2,12 +2,13 @@
 ``pednstream_tpu/env/core.py``).
 
 One RL step is action clipping and application, ``action_gap`` engine
-steps, observation building, rewards and termination, over a lockstep
-batch of replicas: every state leaf carries a leading ``B`` and the batch
-shares one Python-int ``t``, so lockstep holds by construction (the JAX
-core's ``_poison_if_not_lockstep`` guard has nothing to check here).
-Batches whose replicas sit at different ``t`` (the JAX ``lockstep=False``
-path) are not ported yet and raise ``NotImplementedError``.
+steps, observation building, rewards and termination, over a batch of
+replicas: every state leaf carries a leading ``B``.  A batch that shares
+one Python-int ``t`` is in lockstep by construction; one whose ``t`` is an
+int32 ``[B]`` tensor (``state.concat_states``) may hold replicas at
+different times and is stepped with ``lockstep=False``, as in the JAX
+core.  Stepped with ``lockstep=True`` while its times differ, it comes
+back poisoned as from the JAX core's ``_poison_if_not_lockstep``.
 
 Action semantics (rl/builders.py:241-353):
   separators: target width for the forward direction, rate-clipped to
@@ -38,6 +39,17 @@ from ..state import NetworkState, StepOutputs
 from .agents import FEATURES_PER_LINK, AgentSpec
 
 _f32 = torch.float32
+
+
+def _poison_if_not_lockstep(t_in: torch.Tensor, st: NetworkState, obs: Dict, rewards: Dict):
+    """The lockstep contract's guard on a tensor-``t`` batch, on the device
+    (``pednstream_tpu.env.core._poison_if_not_lockstep``): where the
+    incoming times differ, every observation and reward becomes NaN and
+    the new clock ``-2**30``."""
+    ok = (t_in == t_in[0]).all()
+    obs = {k: torch.where(ok, v, float("nan")) for k, v in obs.items()}
+    rewards = {k: torch.where(ok, v, float("nan")) for k, v in rewards.items()}
+    return st.replace(t=torch.where(ok, st.t, -(2 ** 30))), obs, rewards
 
 
 class PedNetEnvCore:
@@ -243,9 +255,12 @@ class PedNetEnvCore:
             rewards = r if rewards is None else {k: rewards[k] + r[k] for k in r}
             outs.append(o)
         obs = self._observations(st)
-        # sim_step >= simulation_steps; one t for the whole batch
-        done = torch.full((st.batch,), st.t > self.scn.simulation_steps, dtype=torch.bool,
-                          device=st.cum_in.device)
+        # sim_step >= simulation_steps, per replica or for the whole batch
+        if isinstance(st.t, torch.Tensor):
+            done = st.t > self.scn.simulation_steps
+        else:
+            done = torch.full((st.batch,), st.t > self.scn.simulation_steps,
+                              dtype=torch.bool, device=st.cum_in.device)
         info = ()
         if self.record:
             info = StepOutputs(**{name: torch.stack([getattr(o, name) for o in outs])
@@ -280,19 +295,22 @@ class PedNetEnvCore:
     def batch_step(self, states: NetworkState, actions: Dict,
                    gen: Optional[torch.Generator] = None, lockstep: bool = True):
         """Step a batch: every action leaf carries a leading ``B``.
-        Returns ``(states, obs, rewards, done)``."""
-        if not lockstep:
-            raise NotImplementedError("batches at different t (lockstep=False) are not "
-                                      "ported yet")
-        st, obs, rewards, done, _ = self._step_impl(states, actions, gen=gen)
-        return st, obs, rewards, done
+        Returns ``(states, obs, rewards, done)``, ``done`` per replica.
+
+        ``lockstep=True`` (the default) requires every replica to be at the
+        same time: an int ``states.t`` is, and a ``[B]`` tensor must hold
+        equal entries, or the step comes back poisoned (NaN observations
+        and rewards, a negative clock; decided on the device, with no host
+        read).  Pass ``lockstep=False`` for a tensor-``t`` batch whose
+        replicas sit at different times."""
+        return self.batch_step_randomized(states, actions, None, gen, lockstep)
 
     def batch_step_randomized(self, states: NetworkState, actions: Dict, engine_params,
                               gen: Optional[torch.Generator] = None, lockstep: bool = True):
         """Batched step with per-replica EngineParams (every leaf with a
-        leading ``B``, see ``randomize``)."""
-        if not lockstep:
-            raise NotImplementedError("batches at different t (lockstep=False) are not "
-                                      "ported yet")
+        leading ``B``, see ``randomize``).  For ``lockstep`` see
+        :meth:`batch_step`."""
         st, obs, rewards, done, _ = self._step_impl(states, actions, engine_params, gen)
+        if lockstep and isinstance(states.t, torch.Tensor):
+            st, obs, rewards = _poison_if_not_lockstep(states.t, st, obs, rewards)
         return st, obs, rewards, done

@@ -5,9 +5,9 @@ API-compatible with the reference env (rl/pz_pednet_env.py:38-697) and
 the JAX wrapper: the same constructor (plus ``device``), agent ids,
 spaces, ``seed``/``reset(options={'randomize': bool})``/``step`` semantics,
 action rate limits and termination rule.  Seeding drives the
-``torch.Generator`` of the stochastic steps.  ``render`` and ``save`` need
-the visualizer and the output handler, which come with the port's
-host-side consumers slice.
+``torch.Generator`` of the stochastic steps.  With ``record_history=True``
+every RL step's ``StepOutputs`` stay on the env's device until ``save``
+(the output handler) or ``render`` (the visualizer) moves them to the host.
 """
 
 import functools
@@ -193,14 +193,34 @@ class PedNetParallelEnv(ParallelEnv):
                vis_actions: bool = False, save_dir: str = None):
         if self.render_mode is None:
             return
-        raise NotImplementedError(
-            "render needs the visualizer, which is not ported yet (ROADMAP queue 1, "
-            "host-side consumers)")
+        from ..viz.visualizer import NetworkVisualizer
+
+        if simulation_dir is not None:
+            self.visualizer = NetworkVisualizer(simulation_dir=simulation_dir, pos=self.scn.pos)
+        else:
+            self.visualizer = NetworkVisualizer(scenario=self.scn, state=self._state,
+                                                pos=self.scn.pos)
+        if self.render_mode == "human":
+            self.visualizer.visualize_network_state(
+                time_step=self.sim_step, edge_property=variable,
+                with_colorbar=True, set_title=True, figsize=(10, 8),
+            )
+        elif self.render_mode == "animate":
+            return self.visualizer.animate_network(
+                start_time=0, end_time=None, interval=100,
+                edge_property=variable, vis_actions=vis_actions,
+            )
+        else:
+            raise ValueError(f"Unsupported render mode: {self.render_mode}")
 
     def save(self, simulation_dir: str, base_dir: str = "outputs"):
-        raise NotImplementedError(
-            "save needs the output handler, which is not ported yet (ROADMAP queue 1, "
-            "host-side consumers)")
+        if not self._history:
+            raise RuntimeError(
+                "No recorded history; construct the env with record_history=True")
+        from ..io.output_handler import OutputHandler
+
+        handler = OutputHandler(base_dir=base_dir, simulation_dir=simulation_dir)
+        handler.save_scenario_state(self.scn, self._history)
 
     def close(self):
         pass

@@ -43,21 +43,25 @@ def network_state_from_jax(leaves: Mapping[str, np.ndarray], device=DEFAULT) -> 
     dtype.
 
     A single-replica state (``cum_in`` of shape ``[E]``) gains a leading
-    batch axis of 1; a vmapped one keeps its batch axis and must share one
-    ``t``.  The PRNG key, if present, is dropped.
+    batch axis of 1; a vmapped one keeps its batch axis.  Where its
+    replicas share one ``t`` that becomes the port's int, and where they
+    differ the int32 ``[B]`` tensor of a per-replica-time batch.  The PRNG
+    key, if present, is dropped.
     """
     device = resolve(device)
     batched = np.asarray(leaves["cum_in"]).ndim == 2
     t = np.asarray(leaves["t"]).reshape(-1)
-    if not (t == t[0]).all():
-        raise ValueError(f"replicas are not in lockstep: t = {t.tolist()}")
+    if (t == t[0]).all():
+        t = int(t[0])
+    else:
+        t = torch.as_tensor(t.astype(np.int32), device=device)
 
     def conv(name):
         x = _tensor(leaves[name], device)
         return x if batched else x.unsqueeze(0)
 
     fields = [f.name for f in dataclasses.fields(NetworkState) if f.name != "t"]
-    return NetworkState(t=int(t[0]), **{name: conv(name) for name in fields})
+    return NetworkState(t=t, **{name: conv(name) for name in fields})
 
 
 def tensors_from_jax(arrays: Mapping[str, np.ndarray], device=DEFAULT) -> dict:

@@ -1,5 +1,5 @@
-from .ncurve import (fused_history_reads, fused_history_reads_plain, fused_history_reads_ref,
-                     lookback)
+from .ncurve import (PER_REPLICA_T, fused_history_reads, fused_history_reads_plain,
+                     fused_history_reads_ref, lookback)
 
-__all__ = ["fused_history_reads", "fused_history_reads_plain", "fused_history_reads_ref",
-           "lookback"]
+__all__ = ["PER_REPLICA_T", "fused_history_reads", "fused_history_reads_plain",
+           "fused_history_reads_ref", "lookback"]

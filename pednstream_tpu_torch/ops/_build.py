@@ -88,8 +88,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     for fn in (lib.ncurve_history_reads, lib.ncurve_history_reads_f64):
         # rings, avg_tt and its replica stride, gamma and its stride,
-        # tau_shockwave and its stride, out, B, H, E, t, unit_time,
-        # windowed, stream
-        fn.argtypes = [_P] * 4 + [_LL, _P, _LL, _P, _LL, _P] + [_I] * 4 + [_F, _I, _P]
+        # tau_shockwave and its stride, out, B, H, E, t, the per-replica
+        # t (or null), unit_time, windowed, stream
+        fn.argtypes = [_P] * 4 + [_LL, _P, _LL, _P, _LL, _P] + [_I] * 4 + [_P, _F, _I, _P]
         fn.restype = _I
     return lib

@@ -12,7 +12,10 @@ coefficients follow from the step's travel times (:func:`lookback`).
 hand-written CUDA kernel (``csrc/ncurve.cu``) on a CUDA tensor, and in
 :func:`fused_history_reads_plain`, its plain PyTorch version, on a CPU
 tensor.  The kernel has a float32 and a float64 instantiation, picked by
-the rings' dtype; both agree with the plain version bit for bit.
+the rings' dtype; both agree with the plain version bit for bit.  The
+step ``t`` is an int shared by the batch, or an int32 ``[B]`` tensor when
+the replicas sit at different times (JAX's ``vmap`` over a per-replica
+``t``): the same kernel then reads each replica's own time.
 :func:`fused_history_reads_ref` is the plain reads alone, given the
 indices and coefficients.
 """
@@ -23,14 +26,17 @@ _F32 = torch.float32
 _I32 = torch.int32
 # the kernel's entry point for each ring dtype
 _ENTRY = {torch.float32: "ncurve_history_reads", torch.float64: "ncurve_history_reads_f64"}
+# the launch count's key for a per-replica t
+PER_REPLICA_T = "_per_replica_t"
 
 
-def lookback(avg_tt, gamma, tau_shockwave, t: int, H: int, unit_time: float, windowed: bool):
+def lookback(avg_tt, gamma, tau_shockwave, t, H: int, unit_time: float, windowed: bool):
     """The step's lookback (``pednstream_tpu.engine._lookback_state`` and
     the index arithmetic of ``_fused_hist``) on tensors.
 
     ``avg_tt`` is float32 ``[B, E]``; ``gamma`` (any float dtype) and
-    ``tau_shockwave`` (int32) are ``[E]`` or ``[B, E]``.  Returns
+    ``tau_shockwave`` (int32) are ``[E]`` or ``[B, E]``; ``t`` is an int or
+    an int32 ``[B]`` tensor (the index arithmetic stays int32).  Returns
     ``(tau, coefs, idx_ci, base, idx_co)``: ``tau = round(avg_tt /
     unit_time)`` (half to even), clamped to ``H - 6`` when ``windowed``;
     the float32 diffusion coefficients ``[B, 4, E]`` ``(F, F m, F m², F m³)``
@@ -50,6 +56,8 @@ def lookback(avg_tt, gamma, tau_shockwave, t: int, H: int, unit_time: float, win
     one_m_f = 1.0 - F
     sq = one_m_f * one_m_f
     coefs = torch.stack([F, F * one_m_f, F * sq, F * (sq * one_m_f)], dim=1)
+    if isinstance(t, torch.Tensor):
+        t = t.unsqueeze(1)  # [B, 1] against the per-link lags
     idx_ci = torch.clamp(t - tau, min=0)  # = ts + 1 - tau
     base = t - 1 - tau  # diffusion lag base
     idx_co = torch.clamp(t - tau_shock, min=0).expand_as(idx_ci)
@@ -84,7 +92,7 @@ def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
 
 
 def fused_history_reads_plain(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma,
-                              tau_shockwave, t: int, unit_time: float, windowed: bool):
+                              tau_shockwave, t, unit_time: float, windowed: bool):
     """Plain PyTorch version of the kernel, on any device:
     :func:`lookback`, then :func:`fused_history_reads_ref`."""
     B, H, E = cum_in_ring.shape
@@ -114,7 +122,7 @@ def _replica_stride(name, x, dtype, B, E, dev) -> int:
     return E
 
 
-def _check(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave):
+def _check(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave, t):
     """Validates the operands; returns the replica strides of avg_tt,
     gamma and tau_shockwave."""
     dtype, dev = cum_in_ring.dtype, cum_in_ring.device
@@ -134,6 +142,14 @@ def _check(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave)
             raise ValueError(f"{name} has shape {tuple(ring.shape)}, expected {(B, H, E)}")
         if not ring.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    if isinstance(t, torch.Tensor):
+        if t.device != dev:
+            raise ValueError(f"t is on {t.device}, the rings on {dev}")
+        if t.dtype != _I32:
+            raise TypeError(f"t is {t.dtype}, expected {_I32}")
+        if tuple(t.shape) != (B,) or not t.is_contiguous():
+            raise ValueError(f"t has shape {tuple(t.shape)} and strides {t.stride()}, "
+                             f"expected a contiguous ({B},)")
     return (_replica_stride("avg_tt", avg_tt, _F32, B, E, dev),
             _replica_stride("gamma", gamma, dtype, B, E, dev),
             _replica_stride("tau_shockwave", tau_shockwave, _I32, B, E, dev))
@@ -149,9 +165,13 @@ def _launch(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave
     dev, dtype = cum_in_ring.device, cum_in_ring.dtype
     out = torch.empty((3, B, E), dtype=dtype, device=dev)
     fn = getattr(library(), _ENTRY[dtype])
+    # a per-replica t goes as a pointer (the scalar is then unused), a
+    # shared one as the scalar beside a null pointer
+    per_replica = isinstance(t, torch.Tensor)
     args = (cum_in_ring.data_ptr(), cum_out_ring.data_ptr(), inflow_ring.data_ptr(),
             avg_tt.data_ptr(), strides[0], gamma.data_ptr(), strides[1],
-            tau_shockwave.data_ptr(), strides[2], out.data_ptr(), B, H, E, t,
+            tau_shockwave.data_ptr(), strides[2], out.data_ptr(), B, H, E,
+            0 if per_replica else t, t.data_ptr() if per_replica else None,
             unit_time, int(windowed))
     if dev.index == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
@@ -160,28 +180,32 @@ def _launch(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"fused_history_reads launch failed: CUDA error {err}")
-    fused_history_reads.launches[str(dtype).removeprefix("torch.")] += 1
+    name = str(dtype).removeprefix("torch.") + (PER_REPLICA_T if per_replica else "")
+    fused_history_reads.launches[name] += 1
     return out.unbind(0)
 
 
 def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma,
-                        tau_shockwave, t: int, unit_time: float, windowed: bool):
+                        tau_shockwave, t, unit_time: float, windowed: bool):
     """The step's lookback and its three history reads in one pass.
 
     Rings are ``[B, H, E]``, all float32 or all float64, contiguous;
     ``avg_tt`` is float32, ``gamma`` of the rings' dtype and
     ``tau_shockwave`` int32, each ``[E]`` or ``[B, E]`` (contiguous along the
     links, replica stride 0 or E: a broadcast view is taken as it is); all
-    on one device.  ``t`` is the step being executed, ``unit_time`` the
-    step length and ``windowed`` whether the rings hold fewer rows than the
-    horizon.  An unbatched call (``[H, E]`` rings, ``[E]`` operands) is
+    on one device.  ``t`` is the step being executed: an int shared by the
+    batch, or an int32 ``[B]`` tensor on the rings' device, one time per
+    replica.  ``unit_time`` is the step length and ``windowed`` whether the
+    rings hold fewer rows than the horizon.  An unbatched call (``[H, E]``
+    rings, ``[E]`` operands, an int ``t`` or a tensor of one element) is
     promoted to ``B = 1`` and its results squeezed.  Returns ``(ci, co,
     diff)``, each ``[B, E]`` in the rings' dtype, as
     :func:`fused_history_reads_plain` defines them.
 
     On a CUDA tensor this launches the kernel of ``csrc/ncurve.cu`` for the
     rings' dtype (built at first use) and counts the launch in
-    ``fused_history_reads.launches[dtype name]``; a failed launch raises.
+    ``fused_history_reads.launches`` under the dtype's name, with
+    ``PER_REPLICA_T`` appended when ``t`` is a tensor; a failed launch raises.
     On a CPU tensor it runs :func:`fused_history_reads_plain`.  Any other
     device, dtype, shape or layout raises.
     """
@@ -190,7 +214,7 @@ def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma,
     unbatched = cum_in_ring.dim() == 2
     if unbatched:
         rings = tuple(x.unsqueeze(0) for x in rings)
-    strides = _check(*rings, *per_link)
+    strides = _check(*rings, *per_link, t)
     dev = rings[0].device.type
     if dev == "cuda":
         out = _launch(*rings, *per_link, strides, t, unit_time, windowed)
@@ -201,5 +225,6 @@ def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma,
     return tuple(o[0] for o in out) if unbatched else tuple(out)
 
 
-# kernel launches per ring dtype
-fused_history_reads.launches = {"float32": 0, "float64": 0}
+# kernel launches per ring dtype, those with a per-replica t apart
+fused_history_reads.launches = {name + form: 0 for name in ("float32", "float64")
+                                for form in ("", PER_REPLICA_T)}

@@ -2,12 +2,18 @@
 ``torch.profiler``.
 
     python -m pednstream_tpu_torch.profiling env [--binomial-mode fast]
+    python -m pednstream_tpu_torch.profiling hetero
     python -m pednstream_tpu_torch.profiling main
     python -m pednstream_tpu_torch.profiling ppo
 
 ``env`` is the randomized RL env episode of ``chip_smoke.py``
 (45_intersections with OD randomization, 256 replicas, each with its own
 randomized EngineParams, uniform random actions, ``batch_step_randomized``);
+``hetero`` is the same env with the replicas in 8 groups at different
+times (10 engine steps apart), stepped with ``lockstep=False``: the
+per-replica ring scatters, column gathers and time vector of the kernel
+(its line also times the same env in lockstep in the same process, in
+turns);
 ``main`` is its main path (melbourne, 1024 replicas, H=16, fast binomial,
 ``simulate_batched``).  Each run steps ``--warm`` times, times ``--steps``
 more steps on the host clock with the profiler off (ending in
@@ -28,14 +34,21 @@ update) ending in a synchronize, then profiles the two halves separately
 over ``--steps`` iterations each.  It prints wall ms per iteration for
 each half, device kernels per RL step of the rollout and per update,
 kernel ms, idle shares and each half's top kernels.
+
+:func:`trace_profile` and :class:`StepTimer` are the counterparts of
+``pednstream_tpu/utils/profiling.py`` (``utils`` exports them): a
+``torch.profiler`` trace written for Perfetto or ``chrome://tracing``, and
+a running steps-per-second counter for training and simulation loops.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
-from typing import Callable
+from pathlib import Path
+from typing import Callable, Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -46,6 +59,7 @@ from .env.core import PedNetEnvCore
 from .generator import NetworkEnvGenerator
 from .randomize import randomize_engine_params_batched
 from .scenario import build_scenario
+from .state import concat_states
 
 # scripts/train_zoo.py's 45_intersections PPO run, the one that made the
 # shipped ppo_agents_45_intersections: its env and its BatchedPPOTrainer
@@ -56,10 +70,62 @@ ZOO_PPO = dict(num_envs=256, rollout_len=16, net_type="attention", hidden_dim=64
                lr=1e-4, epochs=4, minibatches=4, kl_target=0.02, reward_scale=1e-4)
 DEFAULTS = {"env": {"dataset": "45_intersections", "batch": 256, "warm": 130, "steps": 20,
                     "binomial_mode": "exact", "history_window": None},
+            "hetero": {"dataset": "45_intersections", "batch": 256, "warm": 100, "steps": 20,
+                       "binomial_mode": "exact", "history_window": None},
             "main": {"dataset": "melbourne", "batch": 1024, "warm": 30, "steps": 20,
                      "binomial_mode": "fast", "history_window": 16},
             "ppo": {**ZOO_PPO_ENV, "batch": ZOO_PPO["num_envs"], "warm": 1, "steps": 2,
                     "rollout_len": ZOO_PPO["rollout_len"]}}
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir: str = "outputs/profile"):
+    """Capture a host and (where torch sees a card) device trace of the
+    body: ``with trace_profile() as log_dir: run()`` writes
+    ``log_dir/trace.json``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield log_dir
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+class StepTimer:
+    """Running steps/sec counter with EMA smoothing."""
+
+    def __init__(self, ema: float = 0.1):
+        self.ema = ema
+        self.rate: Optional[float] = None
+        self.total_steps = 0
+        self._last_t: Optional[float] = None
+        self._t0 = time.time()
+
+    def tick(self, steps: int = 1) -> Optional[float]:
+        now = time.time()
+        self.total_steps += steps
+        if self._last_t is not None:
+            dt = now - self._last_t
+            if dt > 0:
+                inst = steps / dt
+                self.rate = inst if self.rate is None else (
+                    (1 - self.ema) * self.rate + self.ema * inst)
+        self._last_t = now
+        return self.rate
+
+    @property
+    def average(self) -> float:
+        elapsed = time.time() - self._t0
+        return self.total_steps / elapsed if elapsed > 0 else 0.0
+
+    def summary(self) -> str:
+        return (f"{self.total_steps} steps, avg {self.average:.1f} steps/s"
+                + (f", current {self.rate:.1f} steps/s" if self.rate else ""))
 
 
 def _sync(device) -> None:
@@ -67,9 +133,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+HETERO_GROUPS = 8
+HETERO_APART = 10
+
+
 def env_stepper(dataset: str, batch: int, binomial_mode: str, device, seed: int = 0,
-                history_window=None) -> Callable[[], None]:
-    """One RL step of the randomized batched env per call."""
+                history_window=None, hetero: bool = False) -> Callable[[], None]:
+    """One RL step of the randomized batched env per call; with ``hetero``
+    the replicas start in ``HETERO_GROUPS`` groups ``HETERO_APART`` engine
+    steps apart and are stepped with ``lockstep=False``."""
     scn = NetworkEnvGenerator(history_window=history_window, device=device) \
         .build_od_randomizable(dataset, binomial_mode=binomial_mode)
     spec = build_agent_spec(scn)
@@ -81,11 +153,24 @@ def env_stepper(dataset: str, batch: int, binomial_mode: str, device, seed: int 
               for a, sp in action_spaces.items()}
     box = {"states": core.batch_reset(batch)[0]}
 
-    def step():
+    def step(lockstep=not hetero):
         actions = {a: lo + (hi - lo) * torch.rand((batch,) + lo.shape, generator=g,
                                                   device=device)
                    for a, (lo, hi) in bounds.items()}
-        box["states"] = core.batch_step_randomized(box["states"], actions, eps, g)[0]
+        box["states"] = core.batch_step_randomized(box["states"], actions, eps, g,
+                                                   lockstep=lockstep)[0]
+
+    if hetero:
+        # the batch in lockstep, one more group set aside every few steps
+        per = batch // HETERO_GROUPS
+        groups = []
+        for k in range(HETERO_GROUPS):
+            last = k == HETERO_GROUPS - 1
+            groups.append(box["states"].take(slice(k * per, batch if last else (k + 1) * per)))
+            if not last:
+                for _ in range(HETERO_APART):
+                    step(lockstep=True)
+        box["states"] = concat_states(groups)
     return step
 
 
@@ -201,16 +286,42 @@ def ppo_profile(dataset: str, obs_mode: str, action_gap: int, history_window: in
 
 
 def run(path: str, device="cuda", **overrides) -> dict:
-    """Build ``path`` ("env", "main" or "ppo") with its defaults,
+    """Build ``path`` ("env", "hetero", "main" or "ppo") with its defaults,
     ``overrides`` applied, and profile it."""
     cfg = {**DEFAULTS[path], **overrides}
     if path == "ppo":
         return {"path": path, **cfg, "device": str(device), **ppo_profile(**cfg, device=device)}
-    make = env_stepper if path == "env" else main_stepper
+    make = main_stepper if path == "main" else env_stepper
+    extra = {"hetero": True} if path == "hetero" else {}
     step = make(cfg["dataset"], cfg["batch"], cfg["binomial_mode"], device,
-                history_window=cfg["history_window"])
-    return {"path": path, **cfg, "device": str(device),
-            **profile(step, cfg["warm"], cfg["steps"], device)}
+                history_window=cfg["history_window"], **extra)
+    out = {"path": path, **cfg, "device": str(device),
+           **profile(step, cfg["warm"], cfg["steps"], device)}
+    if path == "hetero":
+        # the same env in lockstep, in the same process and in turns: two
+        # processes' host paces differ by more than the paths do
+        lock = make(cfg["dataset"], cfg["batch"], cfg["binomial_mode"], device,
+                    history_window=cfg["history_window"])
+        for _ in range(cfg["warm"]):
+            lock()
+        out["wall_ms_per_step_in_turns"] = in_turns(
+            {"lockstep": lock, "hetero": step}, ("lockstep", "hetero", "hetero", "lockstep"),
+            cfg["steps"], device)
+    return out
+
+
+def in_turns(steppers: dict, order, steps: int, device) -> list:
+    """``[[name, wall ms per step], ...]``: ``steps`` steps of each stepper
+    named in ``order``, one after the other, each ending in a synchronize."""
+    out = []
+    for name in order:
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            steppers[name]()
+        _sync(device)
+        out.append([name, (time.perf_counter() - t0) * 1e3 / steps])
+    return out
 
 
 def main(argv=None) -> int:

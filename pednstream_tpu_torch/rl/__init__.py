@@ -2,9 +2,9 @@
 ``pednstream_tpu/rl``): the network families (networks), the host PPO and
 SAC agents (ppo, sac), rule-based baselines, the batched PPO and SAC
 trainers that step the env core on the card, the training drivers
-(train) and the host utilities (rl_utils).  The host consumers
-(evaluate, metrics, optimization_based, adapters) come with a later
-slice."""
+(train), the host utilities (rl_utils) and the host consumers: the
+evaluation harness (evaluate), the offline metrics (metrics), the MPC
+baseline (optimization_based) and the RLlib and SB3 adapters (adapters)."""
 
 from .ppo import PPOAgent
 from .sac import SACAgent

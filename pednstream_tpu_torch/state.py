@@ -11,7 +11,10 @@ leaf carries a leading replica axis ``B`` (JAX adds it with ``vmap``).
 - per-link values are ``[B, E]``, per-node values ``[B, N]``;
 - ``t`` is a Python int shared by the whole lockstep batch, so ring-row
   writes and demand-column reads index with a host integer and never read
-  a device value back.
+  a device value back; or an int32 tensor ``[B]`` on the state's device
+  when the replicas sit at different times (:func:`concat_states` makes
+  such a batch), and then the engine scatters and gathers per replica,
+  still without reading ``t`` back.
 
 Flow quantities (flows, cumulative curves, rings, previous sending and
 receiving flows, gates, virtual counters) are in the scenario's
@@ -26,6 +29,7 @@ stochastic steps take an explicit ``torch.Generator``.
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Sequence, Union
 
 import torch
 
@@ -40,6 +44,16 @@ class _Tensors:
     def to(self, device):
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        })
+
+    def take(self, index):
+        """The replicas ``index`` (a slice or an index tensor) of every
+        tensor leaf's leading axis, copied: the result shares no ring with
+        ``self``.  Every tensor leaf must carry the replica axis."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[index].clone()
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
         })
@@ -73,7 +87,9 @@ class EngineParams(_Tensors):
 class NetworkState(_Tensors):
     """State carried from step to step; see the module note for layouts."""
 
-    t: int  # next time step to execute (starts at 1), shared by the batch
+    # next time step to execute (starts at 1): an int shared by the batch,
+    # or int32 [B], one per replica
+    t: Union[int, torch.Tensor]
 
     cum_in_ring: torch.Tensor  # [B, H, E]
     cum_out_ring: torch.Tensor  # [B, H, E]
@@ -105,6 +121,23 @@ class NetworkState(_Tensors):
     @property
     def batch(self) -> int:
         return self.cum_in.shape[0]
+
+
+def concat_states(states: Sequence[NetworkState]) -> NetworkState:
+    """One batch of the replicas of ``states``, in order along ``B`` (what
+    JAX users do with ``tree_map(concatenate)``).  ``t`` becomes the int32
+    ``[B]`` tensor of every replica's own time, so the parts may sit at
+    different times; the leaves are copies."""
+    dev = states[0].cum_in.device
+    ts = []
+    for st in states:
+        t = st.t
+        if not isinstance(t, torch.Tensor):
+            t = torch.full((st.batch,), t, dtype=torch.int32, device=dev)
+        ts.append(t.to(device=dev, dtype=torch.int32))
+    names = [f.name for f in dataclasses.fields(NetworkState) if f.name != "t"]
+    return NetworkState(t=torch.cat(ts), **{
+        name: torch.cat([getattr(st, name) for st in states]) for name in names})
 
 
 @dataclass

@@ -1,6 +1,8 @@
 """The port on the card: the CUDA kernels of fused_history_reads (float32
 and float64, the lookback folded in) against their plain version at every
-path's shape, with shared, per-replica and broadcast per-link operands;
+path's shape, with shared, per-replica and broadcast per-link operands and
+with a shared and a per-replica step ``t``; a batch of replicas at
+different times stepped on the card against the CPU;
 an entry point called with no device; engine rollouts on cuda against the
 CPU, a golden fixture in exact-parity mode, a short randomized env
 episode, the network families on the card against the CPU and one batched
@@ -18,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, simulate
+from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, concat_states, simulate
 from pednstream_tpu_torch.env import PedNetParallelEnv
 from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
-from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_plain
+from pednstream_tpu_torch.ops import (PER_REPLICA_T, fused_history_reads,
+                                      fused_history_reads_plain)
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
 
 pytestmark = pytest.mark.slow
@@ -56,9 +59,11 @@ def make_operands(B, H, E, seed, device, ring_dtype=np.float32, per_replica=Fals
 
 
 def assert_kernel_is_plain(ops, dtype=torch.float32):
-    """One launch of the ``dtype`` kernel, bitwise equal to the plain
-    version on the same CUDA operands."""
+    """One launch of the ``dtype`` kernel (counted apart when ``t`` is per
+    replica), bitwise equal to the plain version on the same CUDA operands."""
     name = str(dtype).removeprefix("torch.")
+    if isinstance(ops[6], torch.Tensor):
+        name += PER_REPLICA_T
     before = dict(fused_history_reads.launches)
     got = fused_history_reads(*ops)
     want = fused_history_reads_plain(*ops)
@@ -98,6 +103,81 @@ def test_kernel_per_replica_operands(cuda, ring_dtype, form):
         ops[3:6] = [x[0].expand(6, -1) if x.dim() == 2 else x.expand(6, -1) for x in ops[3:6]]
         assert all(x.stride(0) == 0 for x in ops[3:6])
     assert_kernel_is_plain(ops, getattr(torch, np.dtype(ring_dtype).name))
+
+
+def replica_times(B, H, seed, device):
+    """One step per replica: the first few at t = 1, 2, ... (lags before
+    time 0), the last past two ring wraps, the rest anywhere up to three."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(1, 3 * H + 9, B).astype(np.int32)
+    small = min(5, max(B // 2, 1))
+    t[:small] = np.arange(1, small + 1)
+    t[-1] = 2 * H + 5
+    return torch.from_numpy(t).to(device)
+
+
+@pytest.mark.parametrize("B,H,E,ring_dtype,per_replica", [
+    (256, 701, 168, np.float32, True), (1024, 16, 938, np.float32, False),
+    (256, 64, 168, np.float32, True), (7, 17, 1000, np.float32, False),
+    (3, 40, 70, np.float64, False), (6, 201, 938, np.float64, True)])
+def test_kernel_per_replica_t_equals_plain_bitwise(cuda, B, H, E, ring_dtype, per_replica):
+    """The per-replica-``t`` form of both instantiations: replicas at
+    t < 6 beside replicas past a ring wrap in one launch, bit for bit the
+    plain version; and each replica equal to the scalar form at its t."""
+    ops = make_operands(B, H, E, seed=B + H + E, device=cuda, ring_dtype=ring_dtype,
+                        per_replica=per_replica)
+    ops[6] = replica_times(B, H, seed=E, device=cuda)
+    dtype = getattr(torch, np.dtype(ring_dtype).name)
+    assert_kernel_is_plain(ops, dtype)
+    got = fused_history_reads(*ops)
+    for b in (0, 4 % B, B - 1):
+        one = [x[b:b + 1] if x.dim() > 1 and x.shape[0] == B else x for x in ops[:6]]
+        want = fused_history_reads(*one, int(ops[6][b]), *ops[7:])
+        for a, w in zip(got, want):
+            assert torch.equal(a[b:b + 1], w)
+
+
+def test_kernel_rejects_a_bad_time_tensor(cuda):
+    ops = make_operands(4, 16, 10, seed=2, device=cuda)
+    for t in (torch.ones(4, dtype=torch.int64, device=cuda),
+              torch.ones(3, dtype=torch.int32, device=cuda),
+              torch.ones(4, dtype=torch.int32)):
+        with pytest.raises((TypeError, ValueError)):
+            fused_history_reads(*ops[:6], t, *ops[7:])
+
+
+def test_het_env_step_on_cuda_matches_cpu(cuda):
+    """Replicas at three different times in one batch, deterministic RL
+    steps with ``lockstep=False`` under no host sync on the card (the
+    per-replica-``t`` kernel, one launch per engine step) against the same
+    batch on the CPU (the plain version): densities within the rollout
+    atol 5e-3, ``t`` and ``done`` equal."""
+    results = {}
+    for device in ("cuda", "cpu"):
+        env = PedNetParallelEnv("butterfly_scC", obs_mode="option2", action_gap=5,
+                                history_window=16, stochastic=False, seed=3, device=device)
+        scn, core = env.scn, env.core
+        parts = [simulate(scn, scn.engine_params, scn.init_state(2), n, record=False)[0]
+                 for n in (0, 9, 37)]
+        states = concat_states(parts)
+        actions = {a: torch.from_numpy(np.tile(env.action_space(a).high * 0.5, (6, 1))).to(device)
+                   for a in env.possible_agents}
+        key = "float32" + PER_REPLICA_T
+        before = fused_history_reads.launches[key]
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(8):
+                states, obs, rewards, done = core.batch_step(states, actions, lockstep=False)
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        assert fused_history_reads.launches[key] - before == (40 if device == "cuda" else 0)
+        assert states.t.tolist() == [41, 41, 50, 50, 78, 78]
+        assert bool(torch.isfinite(obs[env.possible_agents[0]]).all())
+        results[device] = (states.density.cpu(), done.cpu())
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=0, atol=5e-3)
+    assert torch.equal(results["cuda"][1], results["cpu"][1])
 
 
 def test_kernel_unbatched_call(cuda):

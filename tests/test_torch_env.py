@@ -127,8 +127,9 @@ def test_batched_env():
     for _ in range(30):
         states, obs, rewards, done = env.core.batch_step(states, actions, gen)
     assert not torch.allclose(states.density[0], states.density[1])
-    with pytest.raises(NotImplementedError):
-        env.core.batch_step(states, actions, gen, lockstep=False)
+    # an int-t batch is in lockstep by construction: lockstep=False steps it too
+    states, *_ = env.core.batch_step(states, actions, gen, lockstep=False)
+    assert states.t == 33
 
 
 def test_reset_randomize_rebuilds_the_world():
@@ -147,14 +148,24 @@ def test_reset_randomize_rebuilds_the_world():
     assert np.isfinite(rewards["gate_2"]) and info["gate_2"]["step"] == 2
 
 
-def test_render_and_save_wait_for_their_slice():
-    env = make_env(render_mode="human")
+def test_render_and_save_wait_for_their_slice(tmp_path):
+    """The slice has arrived: ``save`` writes a recorded run (and refuses
+    an env that recorded nothing), ``render`` without a mode does nothing
+    and an unknown mode raises."""
+    env = make_env()
     env.reset()
-    with pytest.raises(NotImplementedError):
-        env.render()
-    with pytest.raises(NotImplementedError):
-        env.save("run")
-    assert make_env().render() is None  # no render mode: nothing to do
+    with pytest.raises(RuntimeError, match="record_history"):
+        env.save("run", base_dir=str(tmp_path))
+    assert env.render() is None  # no render mode: nothing to do
+    env = make_env(record_history=True, action_gap=20, stochastic=False)
+    env.reset()
+    env.step({})
+    env.save("run", base_dir=str(tmp_path))
+    assert {p.name for p in (tmp_path / "run").iterdir()} == {
+        "link_data.json", "node_data.json", "network_params.json"}
+    env.render_mode = "nonsense"
+    with pytest.raises(ValueError, match="render mode"):
+        env.render(simulation_dir=str(tmp_path / "run"))
 
 
 # -- against the JAX env core --------------------------------------------------
