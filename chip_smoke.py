@@ -86,6 +86,23 @@ exits non-zero):
    history the env recorded, exported to HTML and, where matplotlib is
    installed, drawn; an engine-state checkpoint round-trips bit for bit on
    the card; the MPC baseline runs one butterfly_scC episode.
+13. mcp: the service layer (``pednstream_tpu_torch.mcp``).  The tool server
+   creates melbourne on the card as the dataset ships it (938 links, 341
+   nodes, the 500-step horizon, float32, stochastic, exact binomial,
+   full-horizon rings, one replica) and serves it in chunks (``steps=`` 1,
+   10 and 100, then ``until=`` 250, then to the end) to ``COMPLETED``: one
+   float32 kernel launch per served step, state and history on the card,
+   finite, non-negative, mass conserved, arrivals; ``save_outputs`` (four
+   files, T + 1 columns), the four resources read back, the interactive map
+   and, where matplotlib is installed, a snapshot.  Then the stdlib HTTP
+   transport on 127.0.0.1: the tool list, create -> run -> status -> save
+   -> resource for butterfly_scC, the 404s, and two simulations stepped at
+   once by two requests, a third request to one of them getting the busy
+   reply; each ends bitwise equal to the same simulation stepped alone
+   (in a thread where a host sync is an error).  Then the scripted
+   workflow (``run_workflow``) on the card.  Prints served steps per
+   second, wall ms per reply by chunk size and the seconds of saving and
+   of the map export (host-bound numbers).
 
 It then prints the kernels' record, the card's ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.
@@ -123,6 +140,13 @@ EVALUATE = {"dataset": "45_intersections", "obs_mode": "option2", "action_gap": 
             "algos": ["ppo", "rule_based", "no_control"], "num_runs": 2,
             "checkpoint": "artifacts/zoo/ppo_agents_45_intersections",
             "mpc_dataset": "butterfly_scC", "mpc_action_gap": 60}
+# the served simulation: melbourne as the dataset ships it, one replica
+MCP = {"dataset": "melbourne", "links": 938, "nodes": 341, "steps": 500,
+       "chunks": (1, 10, 100), "until": 250,
+       "socket": {"butterfly_scC": 300, "nine_intersections": 300}, "socket_steps": 40,
+       "demand_seed": 3, "workflow_steps": 40}
+# its read: one replica, full-horizon rings (H = steps + 1, checked in phase_mcp)
+MCP_SHAPE = (1, MCP["steps"] + 1, MCP["links"])
 
 
 def emit(phase: str, **fields) -> None:
@@ -317,6 +341,7 @@ def phase_kernel(card: str, scn) -> dict:
              ("random", "float32", (SAC_TRAIN["num_envs"], H_train, ENV["links"]), True),
              ("random", "float32", (1, 16, 1), False),
              ("random", "float32", (5, 17, 1000), False),
+             ("random", "float32", MCP_SHAPE, False),  # the served simulation's
              ("random", "float64", EXACT_SHAPE, False),  # the kernels line's float64 entry
              ("random", "float64", (3, 40, 70), False),
              # a step per replica; the kernels line's per-replica-t entries
@@ -1157,6 +1182,267 @@ def phase_evaluate(card: str) -> int:
     return launches
 
 
+def phase_mcp(card: str) -> int:
+    """The service layer on the card; returns the float32 launches."""
+    import importlib.util
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from pednstream_tpu_torch.mcp import http_server, server
+    from pednstream_tpu_torch.mcp.run_mcp import run_workflow
+
+    cfg = MCP
+    T = cfg["steps"]
+    seeded = {"params": {"seed": cfg["demand_seed"]}}  # the socket datasets ship unseeded
+    expected = 0  # launches since the counts were set to 0
+
+    def ok(reply, **want):
+        if reply.get("error") or any(reply.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"reply {reply}, expected {want}")
+        json.dumps(reply)  # no default=: a tensor or numpy scalar raises
+        return reply
+
+    with tempfile.TemporaryDirectory() as tmp:
+        server._manager.base_output_dir = Path(tmp) / "outputs"
+
+        # warm-up on a simulation of its own: the allocator, lazy CUDA init
+        warm = ok(server.create_environment(cfg["dataset"]), status="CREATED")
+        ok(server.run_simulation(warm["sim_id"], steps=5), current_step=5)
+
+        # -- melbourne, served in chunks to the end ---------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        env = ok(server.create_environment(cfg["dataset"]), status="CREATED",
+                 num_nodes=cfg["nodes"], num_links=cfg["links"], simulation_steps=T)
+        create_seconds = time.perf_counter() - t0
+        sid = env["sim_id"]
+        sim = server._manager.get(sid)
+        scn = sim.scenario
+        if (scn.H, scn.binomial_mode, scn.ftype, sim.engine_state.batch) != (
+                T + 1, "exact", torch.float32, 1) or MCP_SHAPE != tuple(
+                sim.engine_state.cum_in_ring.shape):
+            raise AssertionError(f"H={scn.H}, {scn.binomial_mode}, {scn.ftype}, rings "
+                                 f"{tuple(sim.engine_state.cum_in_ring.shape)}")
+        reply_ms, served_seconds, done = {}, 0.0, 0
+        requests = [{"steps": n} for n in cfg["chunks"]] + [{"until": cfg["until"]}, {}]
+        for kw in requests:
+            want = min(kw.get("until", done + kw.get("steps", T)), T - 1)
+            t0 = time.perf_counter()
+            # in this thread a host sync is an error while the loop steps;
+            # the tool's one explicit synchronize before its reply is not
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                reply = server.run_simulation(sid, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            seconds = time.perf_counter() - t0
+            ok(reply, current_step=want, total_steps=T,
+               status="COMPLETED" if want == T - 1 else "CREATED")
+            reply_ms[f"{want - done} steps"] = seconds * 1e3
+            served_seconds += seconds
+            done = want
+            check_launches("float32", done, f"served {done} steps")
+        expected = done
+        final = sim.engine_state
+        if final.t != T or len(sim.history) != T - 1 or sim.step_fn is None:
+            raise AssertionError(f"t={final.t}, {len(sim.history)} recorded steps")
+        check_state(final)
+        check_on_card("history", sim.history)
+        if sim.gen.device.type != "cuda" or sim.device.type != "cuda":
+            raise AssertionError(f"generator on {sim.gen.device}, simulation on {sim.device}")
+        mass_err = check_mass(final)
+        arrivals = final.virt_arr_cum.sum().item()
+        if not arrivals > 0:
+            raise AssertionError("no pedestrian arrived")
+
+        t0 = time.perf_counter()
+        saved = ok(server.save_outputs(sid))
+        save_seconds = time.perf_counter() - t0
+        files = ["link_data.json", "node_data.json", "network_params.json", "time_series.csv"]
+        out_dir = Path(saved["output_dir"])
+        if saved["files"] != files or sorted(f.name for f in out_dir.iterdir()) != sorted(files):
+            raise AssertionError(f"saved {saved['files']}")
+        t0 = time.perf_counter()
+        resources = {name: fn(sid) for name, fn in server.RESOURCES.items()}
+        for (name, text), filename in zip(resources.items(), files):
+            if text != (out_dir / filename).read_text():
+                raise AssertionError(f"{name} is not {filename}")
+        link_data = json.loads(resources["sim://{sim_id}/link_data"])
+        if len(link_data) != cfg["links"]:
+            raise AssertionError(f"{len(link_data)} links saved")
+        for link, entry in link_data.items():
+            n_in, n_out, n = (np.asarray(entry[k]) for k in (
+                "cumulative_inflow", "cumulative_outflow", "num_pedestrians"))
+            if not n_in.shape == n_out.shape == n.shape == (T + 1,):
+                raise AssertionError(f"{link}: {n_in.shape} columns, expected {T + 1}")
+            if np.abs(n_in - n_out - n).max() > T * 1.5 * 2.0 ** -23 * max(n_in.max(), 1.0):
+                raise AssertionError(f"{link}: mass not conserved in the saved run")
+        if json.loads(resources["sim://{sim_id}/network_params"])["simulation_steps"] != T:
+            raise AssertionError("the saved horizon changed")
+        rows = resources["sim://{sim_id}/time_series"].count("\n")
+        if rows != 1 + cfg["links"] * (T - 1):
+            raise AssertionError(f"time_series.csv holds {rows} rows")
+        readback_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        html = ok(server.export_interactive_map(sid))["html_path"]
+        map_seconds = time.perf_counter() - t0
+        html_bytes = Path(html).stat().st_size
+        if html_bytes < 10_000:
+            raise AssertionError(f"the HTML map holds {html_bytes} bytes")
+        snapshot = "matplotlib not installed: no snapshot drawn"
+        if importlib.util.find_spec("matplotlib") is not None:
+            png = ok(server.visualize_snapshot(sid, time_step=T // 2))["image_path"]
+            snapshot = f"matplotlib snapshot of {Path(png).stat().st_size} bytes"
+        emit("mcp", dataset=cfg["dataset"], links=scn.n_links, nodes=scn.n_nodes, batch=1,
+             history=scn.H, binomial_mode=scn.binomial_mode, served_steps=done,
+             status=reply["status"], create_seconds=create_seconds,
+             served_seconds=served_seconds, served_steps_per_s=done / served_seconds,
+             reply_ms_by_chunk=reply_ms, kernel_launches=done, mass_err=mass_err,
+             total_arrivals=arrivals, save_seconds=save_seconds,
+             readback_seconds=readback_seconds, map_seconds=map_seconds,
+             html_bytes=html_bytes, snapshot=snapshot, card=card)
+
+        # -- over the live socket ----------------------------------------------
+        httpd, _ = http_server.serve(port=0, background=True)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                return r.status, r.read().decode()
+
+        def post(tool, **payload):
+            req = urllib.request.Request(
+                f"{base}/tools/{tool}", data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read().decode())
+
+        def code_of(call, *args, **kw):
+            try:
+                call(*args, **kw)
+            except urllib.error.HTTPError as e:
+                return e.code
+            raise AssertionError(f"{args} {kw} raised no HTTP error")
+
+        try:
+            code, body = get("/tools")
+            tools = {t["name"]: t for t in json.loads(body)["tools"]}
+            if code != 200 or set(tools) != set(server.TOOLS) or "device" not in tools[
+                    "create_environment"]["parameters"]["properties"]:
+                raise AssertionError(f"GET /tools: {code}, {sorted(tools)}")
+            first, n = next(iter(cfg["socket"])), cfg["socket_steps"]
+            s1 = ok(post("create_environment", config_name=first, overrides=seeded),
+                    status="CREATED")["sim_id"]
+            ok(post("run_simulation", sim_id=s1, steps=n), current_step=n, status="CREATED")
+            ok(post("get_status", sim_id=s1), current_step=n, status="CREATED")
+            expected += n
+            saved = ok(post("save_outputs", sim_id=s1))
+            code, text = get(f"/resources/sim/{s1}/link_data")
+            if code != 200 or text != (Path(saved["output_dir"]) / "link_data.json").read_text():
+                raise AssertionError("GET link_data is not the saved file")
+            codes = [code_of(post, "nonexistent"), code_of(post, "get_status", sim_id="nosuch"),
+                     code_of(get, f"/resources/sim/{s1}/banana"), code_of(get, "/nowhere"),
+                     code_of(post, "run_simulation", no_such_argument=1)]
+            if codes != [404, 404, 404, 404, 400]:
+                raise AssertionError(f"error codes {codes}")
+
+            # two simulations stepped at once, each by a request of its own
+            together = {name: ok(post("create_environment", config_name=name, overrides=seeded),
+                                 status="CREATED")["sim_id"] for name in cfg["socket"]}
+            replies = {}
+
+            def request(name):
+                replies[name] = post("run_simulation", sim_id=together[name],
+                                     steps=cfg["socket"][name])
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=request, args=(name,)) for name in together]
+            for th in threads:
+                th.start()
+            # a second request to a simulation that is being stepped
+            while 0 == post("get_status", sim_id=together[first])["current_step"]:
+                time.sleep(0.001)
+            busy = post("run_simulation", sim_id=together[first], steps=0)
+            for th in threads:
+                th.join()
+            together_seconds = time.perf_counter() - t0
+            if busy.get("note") != "step loop busy in another request" or busy[
+                    "status"] != "RUNNING":
+                raise AssertionError(f"a busy simulation replied {busy}")
+            for name, steps in cfg["socket"].items():
+                ok(replies[name], current_step=steps, status="CREATED")
+                expected += steps
+            check_launches("float32", expected, "two simulations at once")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+
+        # each against itself stepped alone, in a thread where a host sync
+        # is an error (a per-thread setting)
+        alone, failure, alone_seconds = {}, [], {}
+
+        def step_alone():
+            try:
+                for name, steps in cfg["socket"].items():
+                    # building copies the scenario to the card: outside the mode
+                    alone[name] = ok(server.create_environment(name, overrides=seeded),
+                                     status="CREATED")["sim_id"]
+                    t0 = time.perf_counter()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        reply = server.run_simulation(alone[name], steps=steps)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    alone_seconds[name] = time.perf_counter() - t0
+                    ok(reply, current_step=steps)
+            except BaseException as e:  # re-raised in the main thread below
+                failure.append(e)
+
+        th = threading.Thread(target=step_alone)
+        th.start()
+        th.join()
+        if failure:
+            raise failure[0]
+        for name, steps in cfg["socket"].items():
+            expected += steps
+            a = server._manager.get(together[name]).engine_state
+            b = server._manager.get(alone[name]).engine_state
+            check_state(a)
+            check_mass(a)
+            diff = largest_difference(a, b)
+            if a.t != b.t or diff or not a.cum_in.sum().item() > 0:
+                raise AssertionError(f"{name} stepped beside another simulation differs "
+                                     f"from itself stepped alone: {diff}")
+        check_launches("float32", expected, "the simulations stepped alone")
+        emit("mcp_socket", datasets=cfg["socket"], error_codes=codes, busy_reply=busy,
+             two_at_once_seconds=together_seconds,
+             two_at_once_steps_per_s=sum(cfg["socket"].values()) / together_seconds,
+             one_after_the_other_seconds=alone_seconds,
+             one_after_the_other_steps_per_s=(sum(cfg["socket"].values())
+                                              / sum(alone_seconds.values())),
+             equal_alone_bitwise=True, card=card)
+
+        # -- the scripted workflow (authors a three-node config) ---------------
+        n = cfg["workflow_steps"]
+        t0 = time.perf_counter()
+        log = run_workflow(steps=n, data_dir=str(Path(tmp) / "authored"), verbose=False)
+        workflow_seconds = time.perf_counter() - t0
+        expected += n
+        if [s["current_step"] for s in log["get_status"]] != [n // 2, n]:
+            raise AssertionError(f"workflow statuses {log['get_status']}")
+        wsim = server._manager.get(log["create_environment"][0]["sim_id"])
+        check_state(wsim.engine_state)
+        check_launches("float32", expected, "the workflow")
+        emit("mcp_workflow", steps=n, seconds=workflow_seconds, tools=sorted(log),
+             snapshot=log["visualize_snapshot"][0], simulations=len(server._manager.list()),
+             card=card)
+    return expected
+
+
 def main() -> int:
     import torch
 
@@ -1204,6 +1490,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["float32"]["evaluate"] = phase_evaluate(card)
     seconds["evaluate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["float32"]["mcp"] = phase_mcp(card)
+    seconds["mcp"] = time.perf_counter() - t0
     emit("seconds_per_path", **seconds, card=card)
 
     print(json.dumps({"kernels": [{

@@ -12,12 +12,15 @@ policy networks, PPO/SAC agents, batched PPO and SAC trainers, training
 drivers, evaluation harness, offline metrics, MPC baseline and adapters
 (rl), the fused N-curve history-read kernel (ops, csrc/ncurve.cu), the
 reference-format output handler (io), the visualizers (viz), checkpoints,
-logging and profiling helpers (utils, profiling) and the object-style
-``Network`` facade (network).
+logging and profiling helpers (utils, profiling), the object-style
+``Network`` facade (network) and the service layer (mcp: the tool server,
+its HTTP transport and the agent client).
 """
 
-from .config import load_config
-from .engine import simulate, simulate_batched, step_fn
+__version__ = "0.1.0"
+
+from .config import load_config, validate_config
+from .engine import make_step, simulate, simulate_batched, step_fn
 from .generator import NetworkEnvGenerator
 from .network import Network
 from .scenario import Scenario, build_scenario
@@ -25,6 +28,8 @@ from .state import EngineParams, NetworkState, StepOutputs, concat_states
 
 __all__ = [
     "load_config",
+    "validate_config",
+    "make_step",
     "simulate",
     "simulate_batched",
     "step_fn",

@@ -8,6 +8,8 @@ path_finder?}``, ``default_link``, optional ``links``, ``demand``,
 ``controllers`` and ``od_flows`` (keys "o_d").
 """
 
+from typing import Any, Dict
+
 import numpy as np
 import yaml
 
@@ -65,3 +67,19 @@ def load_config(config_path: str) -> dict:
         }
 
     return result
+
+
+def validate_config(config: Dict[str, Any]) -> None:
+    """Validate raw (unflattened) YAML config structure
+    (reference src/utils/config.py:53-78)."""
+    required_fields = {
+        "network": ["origin_nodes"],
+        "simulation": ["simulation_steps", "unit_time"],
+        "default_link": ["length", "width", "free_flow_speed", "k_critical", "k_jam"],
+    }
+    for section, fields in required_fields.items():
+        if section not in config:
+            raise ValueError(f"Missing required section: {section}")
+        for field in fields:
+            if field not in config[section]:
+                raise ValueError(f"Missing required field: {field} in section {section}")

@@ -475,6 +475,23 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     return new_state, out
 
 
+def make_step(scn, stochastic: bool = False, record: bool = False, donate: bool = False,
+              gen: Optional[torch.Generator] = None):
+    """Single-step function ``(params, state) -> (state, outputs)`` over
+    :func:`step_fn`, with ``gen`` (on the state's device) bound; a
+    stochastic step with none raises when it is called, as ``step_fn`` does.
+
+    ``donate`` is accepted for the JAX signature and has no effect: the
+    rings of the input state are already advanced in place and shared with
+    the returned state, so the previous state must not be stepped again
+    whether or not it is set."""
+
+    def _step(ep: EngineParams, st: NetworkState):
+        return step_fn(scn, ep, st, gen, stochastic, record)
+
+    return _step
+
+
 def simulate_batched(scn, ep: EngineParams, states: NetworkState, num_steps: int,
                      gen: Optional[torch.Generator] = None,
                      stochastic: bool = False) -> NetworkState:

@@ -6,7 +6,9 @@ interface, which is loaded with ``ctypes``.  The library lands in
 ``build/pednstream_tpu_torch/`` at the root of the checkout (ignored by
 git), under a name keyed on a hash of the sources and flags, so a changed
 source builds anew and an unchanged one is reused.  A failed compile
-raises with the compiler's output.
+raises with the compiler's output.  Building and loading are serialized by
+a lock, so threads that reach a kernel together for the first time (a
+threaded server's first requests) compile and load it once.
 """
 
 import ctypes
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -27,6 +30,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+_LOCK = threading.RLock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,12 +60,17 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=None)
 def build() -> dict:
     """Compile the sources if no library for their hash exists yet.
     Returns ``{"path", "seconds", "built", "log"}``: ``seconds`` is the
     compile time (0 when reused), ``log`` the compiler's output (ptxas
-    register and spill counts)."""
+    register and spill counts).  Done once per process."""
+    with _LOCK:
+        return _build()
+
+
+@functools.lru_cache(maxsize=None)
+def _build() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"libpednstream_kernels_{_digest()}.so"
     log_path = lib.with_suffix(".log")
@@ -82,9 +92,15 @@ def build() -> dict:
     return {"path": str(lib), "seconds": seconds, "built": True, "log": log}
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every entry point's signature set."""
+    """The loaded kernel library, with every entry point's signature set.
+    Loaded once per process."""
+    with _LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     for fn in (lib.ncurve_history_reads, lib.ncurve_history_reads_f64):
         # rings, avg_tt and its replica stride, gamma and its stride,

@@ -20,6 +20,8 @@ the replicas sit at different times (JAX's ``vmap`` over a per-replica
 indices and coefficients.
 """
 
+import threading
+
 import torch
 
 _F32 = torch.float32
@@ -28,6 +30,8 @@ _I32 = torch.int32
 _ENTRY = {torch.float32: "ncurve_history_reads", torch.float64: "ncurve_history_reads_f64"}
 # the launch count's key for a per-replica t
 PER_REPLICA_T = "_per_replica_t"
+# guards the launch counts: simulations step from several threads at once
+_COUNT_LOCK = threading.Lock()
 
 
 def lookback(avg_tt, gamma, tau_shockwave, t, H: int, unit_time: float, windowed: bool):
@@ -181,7 +185,8 @@ def _launch(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave
     if err != 0:
         raise RuntimeError(f"fused_history_reads launch failed: CUDA error {err}")
     name = str(dtype).removeprefix("torch.") + (PER_REPLICA_T if per_replica else "")
-    fused_history_reads.launches[name] += 1
+    with _COUNT_LOCK:
+        fused_history_reads.launches[name] += 1
     return out.unbind(0)
 
 
@@ -203,7 +208,9 @@ def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma,
     :func:`fused_history_reads_plain` defines them.
 
     On a CUDA tensor this launches the kernel of ``csrc/ncurve.cu`` for the
-    rings' dtype (built at first use) and counts the launch in
+    rings' dtype (built at first use) on the calling thread's current
+    stream and counts the launch (under a lock, so concurrent threads all
+    count) in
     ``fused_history_reads.launches`` under the dtype's name, with
     ``PER_REPLICA_T`` appended when ``t`` is a tensor; a failed launch raises.
     On a CPU tensor it runs :func:`fused_history_reads_plain`.  Any other

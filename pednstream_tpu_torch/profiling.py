@@ -5,6 +5,7 @@
     python -m pednstream_tpu_torch.profiling hetero
     python -m pednstream_tpu_torch.profiling main
     python -m pednstream_tpu_torch.profiling ppo
+    python -m pednstream_tpu_torch.profiling served
 
 ``env`` is the randomized RL env episode of ``chip_smoke.py``
 (45_intersections with OD randomization, 256 replicas, each with its own
@@ -15,7 +16,10 @@ per-replica ring scatters, column gathers and time vector of the kernel
 (its line also times the same env in lockstep in the same process, in
 turns);
 ``main`` is its main path (melbourne, 1024 replicas, H=16, fast binomial,
-``simulate_batched``).  Each run steps ``--warm`` times, times ``--steps``
+``simulate_batched``); ``served`` is the tool server's simulation
+(``mcp.server.create_environment("melbourne")``: one replica, exact binomial,
+full-horizon rings), each call one ``run_simulation(steps=1)`` request, its
+synchronize before the reply included.  Each run steps ``--warm`` times, times ``--steps``
 more steps on the host clock with the profiler off (ending in
 ``torch.cuda.synchronize()``), then profiles ``--steps`` more.  It prints
 one JSON line: wall ms per step (profiler off), device kernels and
@@ -74,6 +78,8 @@ DEFAULTS = {"env": {"dataset": "45_intersections", "batch": 256, "warm": 130, "s
                        "binomial_mode": "exact", "history_window": None},
             "main": {"dataset": "melbourne", "batch": 1024, "warm": 30, "steps": 20,
                      "binomial_mode": "fast", "history_window": 16},
+            "served": {"dataset": "melbourne", "batch": 1, "warm": 100, "steps": 20,
+                       "binomial_mode": "exact", "history_window": None},
             "ppo": {**ZOO_PPO_ENV, "batch": ZOO_PPO["num_envs"], "warm": 1, "steps": 2,
                     "rollout_len": ZOO_PPO["rollout_len"]}}
 
@@ -189,6 +195,28 @@ def main_stepper(dataset: str, batch: int, binomial_mode: str, device, seed: int
     return step
 
 
+def served_stepper(dataset: str, batch: int, binomial_mode: str, device,
+                   history_window=None) -> Callable[[], None]:
+    """One one-step ``run_simulation`` request per call, on a simulation the
+    tool server creates as it does for any client: ``batch``,
+    ``binomial_mode`` and ``history_window`` must be the server's (1,
+    "exact", None)."""
+    from .mcp import server
+
+    if (batch, binomial_mode, history_window) != (1, "exact", None):
+        raise ValueError("the tool server steps one replica with the exact binomial and "
+                         "full-horizon rings")
+    reply = server.create_environment(dataset, device=str(device))
+    if reply["status"] != "CREATED":
+        raise RuntimeError(f"create_environment: {reply}")
+
+    def step():
+        done = server.run_simulation(reply["sim_id"], steps=1)
+        if done.get("error") or done["status"] == "COMPLETED":
+            raise RuntimeError(f"the served simulation cannot step further: {done}")
+    return step
+
+
 def _trace(calls, steps: int, device, top: int, between=None) -> dict:
     """Kernel statistics of ``steps`` calls of ``calls`` under
     ``torch.profiler`` (``between`` runs after each call, untraced)."""
@@ -286,12 +314,12 @@ def ppo_profile(dataset: str, obs_mode: str, action_gap: int, history_window: in
 
 
 def run(path: str, device="cuda", **overrides) -> dict:
-    """Build ``path`` ("env", "hetero", "main" or "ppo") with its defaults,
+    """Build ``path`` ("env", "hetero", "main", "served" or "ppo") with its defaults,
     ``overrides`` applied, and profile it."""
     cfg = {**DEFAULTS[path], **overrides}
     if path == "ppo":
         return {"path": path, **cfg, "device": str(device), **ppo_profile(**cfg, device=device)}
-    make = main_stepper if path == "main" else env_stepper
+    make = {"main": main_stepper, "served": served_stepper}.get(path, env_stepper)
     extra = {"hetero": True} if path == "hetero" else {}
     step = make(cfg["dataset"], cfg["batch"], cfg["binomial_mode"], device,
                 history_window=cfg["history_window"], **extra)

@@ -5,9 +5,9 @@ learner episode loop (rl/agents/PPO_backup.py:762-956, rl/train_rl.py:
 35-106): per-episode rollouts over a dict of agents with delta->absolute
 action conversion, per-episode PPO updates, and validation-gated best
 checkpointing.  ``train_off_policy_multi_agent`` is the SAC loop
-(rl/agents/SAC_copy.py:157-310).  The JAX package's multi-device demo
-step (``init_train_state``/``make_dp_train_step``) comes with the
-multi-device slice.
+(rl/agents/SAC_copy.py:157-310).  ``init_train_state`` is the policy and
+optimizer state of the JAX package's multi-device demo step; the step
+itself (``make_dp_train_step``) comes with the multi-device slice.
 
     python -m pednstream_tpu_torch.rl.train --dataset butterfly_scC --algo ppo \\
         --episodes 100 --device cuda
@@ -18,8 +18,12 @@ import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
+from ..device import DEFAULT, resolve
 from ..env.agents import FEATURES_PER_LINK, controlled_links_adjacency
+from .networks import MLPPolicy, init_flax_
+from .optim import adam_init
 from .ppo import PPOAgent
 from .rl_utils import validate_and_save_best
 from .rule_based import NoControlAgent, RuleBasedGaterAgent, RuleBasedSeparatorAgent
@@ -211,6 +215,33 @@ def train_off_policy_multi_agent(
         # the final state competes too: off-policy training is not monotone
         validate_and_save_best(env, agents, best_reward, save_dir)
     return history
+
+
+# -- state of the data-parallel demo trainer -----------------------------------
+
+def init_train_state(core, seed: int = 0, device=DEFAULT) -> dict:
+    """Policy + optimizer state for the batched data-parallel trainer: an
+    ``MLPPolicy`` for the first gater (or the separators) with flax's
+    initializers drawn on the host from ``seed``, moved to ``device``, and
+    an Adam state at ``tx["lr"] = 3e-4`` for ``rl.optim.adam_update``."""
+    device = resolve(device)
+    spec = core.spec
+    agent_id = spec.gate_ids[0] if spec.gate_ids else "sep"
+    if spec.gate_ids:
+        obs_dim = len(spec.gate_links[0]) * FEATURES_PER_LINK[core.obs_mode]
+        act_dim = len(spec.gate_links[0])
+    else:
+        obs_dim, act_dim = 4, 1
+    gen = torch.Generator().manual_seed(seed)
+    policy = init_flax_(MLPPolicy(obs_dim, act_dim), gen).to(device)
+    return {
+        "agent_id": agent_id,
+        "policy": policy,
+        "params": list(policy.parameters()),
+        "tx": {"lr": 3e-4},
+        "opt_state": adam_init(policy.parameters()),
+        "act_dim": act_dim,
+    }
 
 
 # -- CLI (reference rl/train_rl.py:35-247) ---------------------------------------

@@ -5,8 +5,9 @@ with a shared and a per-replica step ``t``; a batch of replicas at
 different times stepped on the card against the CPU;
 an entry point called with no device; engine rollouts on cuda against the
 CPU, a golden fixture in exact-parity mode, a short randomized env
-episode, the network families on the card against the CPU and one batched
-PPO iteration.  Every test here needs a GPU, skips without one (decided in
+episode, the network families on the card against the CPU, one batched
+PPO iteration, and the service layer (the MCP workflow, and two
+simulations stepped from two threads).  Every test here needs a GPU, skips without one (decided in
 the ``cuda`` fixture), and is marked ``slow``, so the default tiers leave it
 out.  The file imports no JAX (nor does it need tests/conftest.py), so on
 a machine with a card it runs as
@@ -76,9 +77,11 @@ def assert_kernel_is_plain(ops, dtype=torch.float32):
 
 # then: the main path's melbourne shape, the env episode's
 # 45_intersections shape (256 replicas, full-horizon rings, 168 links) and
-# the PPO and SAC trainers' (256 and 64 replicas, H=64, 168 links)
+# the PPO and SAC trainers' (256 and 64 replicas, H=64, 168 links) and
+# the served simulation's (melbourne, one replica, full-horizon rings)
 @pytest.mark.parametrize("B,H,E", [(1, 16, 1), (5, 17, 1000), (2, 64, 4097), (1024, 16, 938),
-                                   (256, 701, 168), (256, 64, 168), (64, 64, 168)])
+                                   (256, 701, 168), (256, 64, 168), (64, 64, 168),
+                                   (1, 501, 938)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
     assert_kernel_is_plain(make_operands(B, H, E, seed=B + H + E, device=cuda))
 
@@ -349,3 +352,75 @@ def test_batched_ppo_iteration_on_cuda(cuda):
     for module in (*ts.params.values(), *ts.value_params.values()):
         assert all(p.device.type == "cuda" for p in module.parameters())
     assert ts.env_states.cum_in.device.type == "cuda" and ts.iteration == 1
+
+
+def test_mcp_workflow_on_cuda(cuda, tmp_path, monkeypatch):
+    """The scripted workflow through the tool server with no device given:
+    the simulation lives on the card, one float32 kernel launch per served
+    step, every reply plain JSON."""
+    import json
+
+    from pednstream_tpu_torch.mcp import server
+    from pednstream_tpu_torch.mcp.run_mcp import run_workflow
+
+    monkeypatch.setattr(server._manager, "base_output_dir", tmp_path / "outputs")
+    before = fused_history_reads.launches["float32"]
+    log = run_workflow(steps=20, data_dir=str(tmp_path), verbose=False)
+    assert fused_history_reads.launches["float32"] - before == 20
+    assert [s["current_step"] for s in log["get_status"]] == [10, 20]
+    sim = server._manager.get(log["create_environment"][0]["sim_id"])
+    assert sim.device.type == "cuda" and sim.gen.device.type == "cuda"
+    assert sim.engine_state.cum_in_ring.device.type == "cuda"
+    assert all(h.density.device.type == "cuda" for h in sim.history)
+    assert float(sim.engine_state.cum_in.sum()) > 0
+    for replies in log.values():
+        for reply in replies:
+            assert json.loads(json.dumps(reply)) == reply
+    assert (Path(log["save_outputs"][0]["output_dir"]) / "time_series.csv").exists()
+
+
+def test_mcp_two_threads_on_cuda(cuda, tmp_path, monkeypatch):
+    """Two simulations stepped at once from two threads, each thread with
+    host syncs made an error while it steps: every launch is counted, and
+    each simulation ends bitwise equal to itself stepped alone."""
+    import threading
+
+    from pednstream_tpu_torch.mcp import server
+
+    monkeypatch.setattr(server._manager, "base_output_dir", tmp_path / "outputs")
+    names = ("butterfly_scC", "nine_intersections")
+    steps = 60
+
+    def create(name):
+        r = server.create_environment(name, overrides={"params": {"seed": 3}})
+        assert r["status"] == "CREATED", r
+        return server._manager.get(r["sim_id"])
+
+    def run(sim, replies):
+        # a per-thread setting: the loop must not wait for the card, the
+        # one synchronize before the reply is explicit and allowed
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replies.append(server.run_simulation(sim.sim_id, steps=steps // 2))
+            replies.append(server.run_simulation(sim.sim_id, until=steps))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    server.run_simulation(create(names[0]).sim_id, steps=2)  # the library is loaded
+    together = [create(n) for n in names]
+    replies = [[] for _ in together]
+    before = fused_history_reads.launches["float32"]
+    threads = [threading.Thread(target=run, args=a) for a in zip(together, replies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert fused_history_reads.launches["float32"] - before == 2 * steps
+    for sim, got, name in zip(together, replies, names):
+        assert [r.get("current_step") for r in got] == [steps // 2, steps], got
+        alone = create(name)
+        assert server.run_simulation(alone.sim_id, steps=steps)["current_step"] == steps
+        for leaf, x in vars(sim.engine_state).items():
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, getattr(alone.engine_state, leaf)), (name, leaf)
+        assert float(sim.engine_state.cum_in.sum()) > 0
