@@ -5,6 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py parallel`` runs phase 14 alone and prints no result
+line.)
+
 Phases, each printing one JSON line (a failing phase raises, and the script
 exits non-zero):
 
@@ -104,6 +107,24 @@ exits non-zero):
    second, wall ms per reply by chunk size and the seconds of saving and
    of the map export (host-bound numbers).
 
+14. parallel: the multi-device layer (``pednstream_tpu_torch.parallel``), as
+   groups of ranks spawned over ``torch.distributed`` that share this card
+   (``gloo``, which moves the exchanged CUDA tensors through host memory
+   itself; ``nccl`` where there is a card per rank), each rank launching the kernel on its own
+   block.  Link-sharded: melbourne, 1024 replicas, H = 16, the fast
+   sampler, 100 stochastic steps over 2 link ranks with no host sync
+   allowed outside the exchange, every state field BITWISE equal to the
+   unsharded run in this process from the same state and seed, one float32
+   launch per step per rank at (1024, 16, 469), the collectives per step
+   and their largest size against a ring's, and the bytes a rank holds
+   beside the unsharded run's.  Hybrid: the same on a 2 x 2 (env x link)
+   mesh, 50 steps, (512, 16, 469) per rank.  Data-parallel trainer: phase
+   8's trainer (env with the fast sampler) over 2 ranks, one iteration from
+   the same seed as an unsharded one here: env state bitwise, metrics and
+   parameters within rtol 1e-4 (atol 1e-6 and 1e-5), 240 launches per rank
+   at (128, 64, 168).  Then ``dryrun_multichip_torch.py``'s five stages at
+   4 ranks.  A rank that fails fails the phase.
+
 It then prints the kernels' record, the card's ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -147,6 +168,29 @@ MCP = {"dataset": "melbourne", "links": 938, "nodes": 341, "steps": 500,
        "demand_seed": 3, "workflow_steps": 40}
 # its read: one replica, full-horizon rings (H = steps + 1, checked in phase_mcp)
 MCP_SHAPE = (1, MCP["steps"] + 1, MCP["links"])
+# the sharded runs: melbourne's 938 links over 2 link ranks, whole batch and
+# (on the 2 x 2 mesh) half; the zoo trainer's 256 replicas over 2 ranks
+PARALLEL = {"link_ranks": 2, "steps": 100, "hybrid": (2, 2), "hybrid_steps": 50,
+            "trainer_ranks": 2, "dryrun_ranks": 4, "rtol": 1e-4, "metric_atol": 1e-6,
+            "param_atol": 1e-5}
+LINK_BLOCK = (MAIN["batch"], MAIN["history_window"], 938 // 2)
+HYBRID_BLOCK = (MAIN["batch"] // 2, MAIN["history_window"], 938 // 2)
+
+
+def dryrun_blocks() -> dict:
+    """The ring blocks of the dry run's stages at ``PARALLEL["dryrun_ranks"]``
+    ranks, from its own scenario: two replicas a rank in the three trainer
+    stages, one replica over the link axis, the 2 x n/2 hybrid."""
+    import dryrun_multichip_torch
+    from pednstream_tpu_torch import build_scenario
+
+    cfg = dryrun_multichip_torch.load_config_for_dryrun()
+    scn = build_scenario(cfg["adjacency_matrix"], cfg["params"], cfg["origin_nodes"],
+                         cfg["destination_nodes"], od_candidates=([4], [1]), device="cuda")
+    world = PARALLEL["dryrun_ranks"]
+    link_n = max(d for d in range(1, world + 1) if scn.n_links % d == 0)
+    return {"replicas": (2, scn.H, scn.n_links), "link": (1, scn.H, scn.n_links // link_n),
+            "hybrid": (2, scn.H, scn.n_links // (world // 2))}
 
 
 def emit(phase: str, **fields) -> None:
@@ -333,6 +377,7 @@ def phase_kernel(card: str, scn) -> dict:
     from pednstream_tpu_torch.profiling import ZOO_PPO, ZOO_PPO_ENV
 
     H_train = ZOO_PPO_ENV["history_window"]
+    dry = dryrun_blocks()
     M = (MAIN["batch"], MAIN["history_window"], 938)
     cases = [("real", "float32", M, False),  # the kernels line's float32 entry
              ("random", "float32", M, False),
@@ -342,6 +387,16 @@ def phase_kernel(card: str, scn) -> dict:
              ("random", "float32", (1, 16, 1), False),
              ("random", "float32", (5, 17, 1000), False),
              ("random", "float32", MCP_SHAPE, False),  # the served simulation's
+             # the sharded runs' blocks: link-sharded, hybrid, the trainer's half
+             ("random", "float32", LINK_BLOCK, False),
+             ("random", "float32", HYBRID_BLOCK, False),
+             ("random", "float32", (ZOO_PPO["num_envs"] // 2, H_train, ENV["links"]), True),
+             # the dry run's: the plain and the randomized trainers' replicas,
+             # the link block, the hybrid block
+             ("random", "float32", dry["replicas"], False),
+             ("random", "float32", dry["replicas"], True),
+             ("random", "float32", dry["link"], False),
+             ("random", "float32", dry["hybrid"], False),
              ("random", "float64", EXACT_SHAPE, False),  # the kernels line's float64 entry
              ("random", "float64", (3, 40, 70), False),
              # a step per replica; the kernels line's per-replica-t entries
@@ -653,11 +708,11 @@ def flat_params(modules):
     return torch.cat([p.detach().reshape(-1).clone() for m in modules for p in m.parameters()])
 
 
-def train_env():
+def train_env(seed=None):
     from pednstream_tpu_torch.env import PedNetParallelEnv
     from pednstream_tpu_torch.profiling import ZOO_PPO_ENV
 
-    env = PedNetParallelEnv(**ZOO_PPO_ENV, device="cuda")
+    env = PedNetParallelEnv(**ZOO_PPO_ENV, seed=seed, device="cuda")
     scn = env.scn
     if (scn.n_links, scn.n_nodes, env.possible_agents, scn.H, scn.simulation_steps,
             scn.binomial_mode) != (ENV["links"], 49, [ENV["agent"]], 64, 700, "exact"):
@@ -1443,6 +1498,346 @@ def phase_mcp(card: str) -> int:
     return expected
 
 
+# -- phase 14: the multi-device layer; the *_rank functions run in spawned ranks --
+
+def _card_setup():
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    if not torch.cuda.is_available():
+        raise RuntimeError("a rank of the parallel phase found no CUDA card")
+    return torch
+
+
+def state_bytes(tree) -> int:
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in vars(tree).values()
+               if isinstance(x, torch.Tensor))
+
+
+def compare_block(mine, whole, rows, cols) -> dict:
+    """Largest absolute difference per field between this rank's block and
+    its part of the whole reference state; every field must be bitwise
+    equal."""
+    import dataclasses
+
+    import torch
+
+    worst = {}
+    for f in dataclasses.fields(mine):
+        a, b = getattr(mine, f.name), getattr(whole, f.name)
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                raise AssertionError(f"{f.name}: {a} != {b}")
+            continue
+        b = b[rows]
+        if f.name not in ("virt_dep", "virt_arr", "virt_dep_cum", "virt_arr_cum"):
+            b = b[..., cols]
+        worst[f.name] = (a - b).abs().max().item()
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"sharded {f.name} != unsharded: max abs diff {worst[f.name]}")
+    return worst
+
+
+def link_rank(rank, world, device, mesh_shape, steps, ref_path):
+    """One rank of the link-sharded (1 x P) or hybrid (Pe x Pl) melbourne
+    run; compares its final block with the unsharded reference on the card."""
+    torch = _card_setup()
+    from pednstream_tpu_torch import parallel as par
+    from pednstream_tpu_torch.ops import fused_history_reads
+
+    scn = main_scenario()
+    n_env, n_link = mesh_shape
+    hybrid = n_env > 1
+    mesh = (par.make_mesh_2d(n_env, n_link) if hybrid else par.make_mesh(n_link, axis="link"))
+    # the block is cut on the host: the card never holds the whole state
+    whole = scn.init_state(MAIN["batch"], device="cpu")
+    whole_bytes = state_bytes(whole)
+    block = (par.shard_hybrid_state(whole, mesh) if hybrid
+             else par.shard_link_state(whole, mesh)).to(device)
+    del whole
+    make = par.make_hybrid_sharded_simulate if hybrid else par.make_link_sharded_simulate
+    ep = par.shard_link_params(scn.engine_params, mesh)
+    # warm-up on its own block (allocator, lazy init, gloo's buffers)
+    warm = block.take(slice(None))
+    make(scn, mesh, 5, stochastic=True)(
+        ep, warm, torch.Generator(device=device).manual_seed(SEED + 1))
+    del warm
+    g = torch.Generator(device=device).manual_seed(SEED)
+    run = make(scn, mesh, steps, stochastic=True)
+    mesh.collectives.clear()
+    mesh.host_trips = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final = run(ep, block, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fused_history_reads.launches)
+    peak = torch.cuda.max_memory_allocated()
+    ring_bytes = MAIN["batch"] * scn.H * scn.n_links * 4
+    n_coll, n_bad = par.assert_no_full_ring_collectives(mesh, ring_bytes)
+    record = {k: list(v) for k, v in mesh.collectives.items()}
+    host_trips = mesh.host_trips
+    ref = torch.load(ref_path, map_location=device, weights_only=False)
+    rows = mesh.block("env", MAIN["batch"]) if hybrid else slice(None)
+    worst = compare_block(final, ref, rows, mesh.block("link", scn.n_links))
+    return {"rank": rank, "coords": mesh.coords, "backend": torch.distributed.get_backend(),
+            "through_host": mesh.via_host, "host_trips": host_trips,
+            "block": tuple(final.cum_in_ring.shape), "launches": launches,
+            "seconds": seconds, "collectives": n_coll, "violations": n_bad,
+            "record": record, "ring_bytes": ring_bytes,
+            "state_bytes": state_bytes(final), "whole_state_bytes": whole_bytes,
+            "held_bytes_before_run": held, "peak_bytes": peak,
+            "max_abs_diff": max(worst.values()), "fields": len(worst)}
+
+
+def transport_rank(rank, world, device, rounds):
+    """The link-sharded step's largest exchange (four stacked [B, E/P]
+    float32 vectors) as the mesh makes it, handed to gloo as CUDA tensors,
+    and staged through a pinned host buffer of this function's own;
+    milliseconds per exchange of each."""
+    torch = _card_setup()
+    from pednstream_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(world, axis="link")
+    g = torch.Generator(device=device).manual_seed(SEED + rank)
+    four = torch.rand((4,) + LINK_BLOCK[::2], generator=g, device=device)
+    pinned = torch.empty(four.shape, pin_memory=True)
+    out = {"backend": torch.distributed.get_backend(), "through_host": mesh.via_host,
+           "bytes": four.numel() * 4 * world}
+    for how in ("direct", "staged", "direct", "staged"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            if how == "direct":
+                got = par.all_gather(four, mesh, "link", name="transport")
+            else:
+                parts = [torch.empty_like(pinned) for _ in range(world)]
+                torch.distributed.all_gather(parts, pinned.copy_(four),
+                                             group=mesh.group("link"))
+                if not torch.equal(torch.cat(parts, dim=-1).to(device), got):
+                    raise AssertionError("the staged exchange disagrees with gloo's own")
+        torch.cuda.synchronize()
+        out.setdefault(how + "_ms", []).append((time.perf_counter() - t0) / rounds * 1e3)
+    return out
+
+
+def parallel_trainer():
+    """Phase 8's trainer over an env that draws with the fast sampler.  The
+    dataset ships unseeded (fresh demand per build), and every rank must
+    build the same scenario: the env is seeded."""
+    from pednstream_tpu_torch.profiling import ZOO_PPO
+
+    env = train_env(seed=SEED)
+    env.scn.binomial_mode = "fast"
+    return env, ZOO_PPO
+
+
+def trainer_rank(rank, world, device, ref_path):
+    """One rank of the data-parallel PPO iteration."""
+    torch = _card_setup()
+    from pednstream_tpu_torch import parallel as par
+    from pednstream_tpu_torch.ops import fused_history_reads
+    from pednstream_tpu_torch.rl import BatchedPPOTrainer
+
+    env, kw = parallel_trainer()
+    mesh = par.make_mesh(world)
+    tr = BatchedPPOTrainer(env.core, mesh=mesh, **kw)
+    tr.train_iteration(tr.init(seed=SEED + 1))  # warm-up on its own state
+    ts = tr.init(seed=SEED)
+    block = tuple(ts.env_states.cum_in_ring.shape)
+    mesh.collectives.clear()
+    mesh.host_trips = 0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, metrics = tr._learn(ts, tr._rollout(ts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fused_history_reads.launches)
+    ref = torch.load(ref_path, map_location=device, weights_only=False)
+    worst = compare_block(ts.env_states, ref["state"], mesh.block("env", tr.B), slice(None))
+    check_on_card("env_states", ts.env_states)
+    check_on_card("params", ts.params)
+    aid = ENV["agent"]
+    return {"rank": rank, "block": block, "launches": launches, "seconds": seconds,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": flat_params([ts.params[aid], ts.value_params[aid]]).cpu(),
+            "record": {k: list(v) for k, v in mesh.collectives.items()},
+            "host_trips": mesh.host_trips, "state_max_abs_diff": max(worst.values()),
+
+            "backend": torch.distributed.get_backend()}
+
+
+def phase_parallel(card: str, scn) -> dict:
+    """The sharded paths on the card; returns the float32 launches of all
+    ranks, per path."""
+    import math
+    import tempfile
+
+    import torch
+    from pednstream_tpu_torch import parallel as par, simulate_batched
+    from pednstream_tpu_torch.ops import fused_history_reads
+    from pednstream_tpu_torch.rl import BatchedPPOTrainer
+
+    import dryrun_multichip_torch
+
+    ep = scn.engine_params
+    B, steps, hsteps = MAIN["batch"], PARALLEL["steps"], PARALLEL["hybrid_steps"]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        # the unsharded run, from the same initial state and seed
+        simulate_batched(scn, ep, scn.init_state(B), 5,
+                         gen=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                         stochastic=True)
+        states = scn.init_state(B)
+        whole_bytes = state_bytes(states)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        mid = simulate_batched(scn, ep, states, hsteps, gen=g, stochastic=True)
+        torch.cuda.synchronize()
+        torch.save(mid.to("cpu"), f"{tmp}/ref_{hsteps}.pt")
+        t1 = time.perf_counter()
+        final = simulate_batched(scn, ep, mid, steps - hsteps, gen=g, stochastic=True)
+        torch.cuda.synchronize()
+        unsharded_s = (time.perf_counter() - t1) / (steps - hsteps)
+        peak = torch.cuda.max_memory_allocated()
+        check_state(final)
+        torch.save(final.to("cpu"), f"{tmp}/ref_{steps}.pt")
+        del states, mid, final
+        emit("parallel_unsharded", dataset=MAIN["dataset"], batch=B, history_window=scn.H,
+             steps=steps, ms_per_step=unsharded_s * 1e3, state_bytes=whole_bytes,
+             held_bytes_before_run=held, peak_bytes=peak, card=card)
+
+        for name, mesh_shape, n, want_block in (
+                ("link_sharded", (1, PARALLEL["link_ranks"]), steps, LINK_BLOCK),
+                ("hybrid", PARALLEL["hybrid"], hsteps, HYBRID_BLOCK)):
+            world = mesh_shape[0] * mesh_shape[1]
+            ranks = par.spawn_ranks(link_rank, world,
+                                    (mesh_shape, n, f"{tmp}/ref_{n}.pt"), device="cuda")
+            for r in ranks:
+                want = {**dict.fromkeys(r["launches"], 0), "float32": n}
+                if r["launches"] != want or r["block"] != want_block:
+                    raise AssertionError(f"{name} rank {r['rank']}: launches {r['launches']} "
+                                         f"at block {r['block']}, expected {want} at "
+                                         f"{want_block}")
+                if r["violations"] or not r["collectives"] or r["max_abs_diff"] != 0.0:
+                    raise AssertionError(f"{name} rank {r['rank']}: {r}")
+            r0 = ranks[0]
+            largest = max(v[1] for v in r0["record"].values())
+            emit("parallel_" + name, dataset=MAIN["dataset"], batch=B, history_window=scn.H,
+                 mesh=list(mesh_shape), ranks=world, steps=n, block=list(r0["block"]),
+                 bitwise_equal_to_unsharded=True, fields_compared=r0["fields"],
+                 backend=r0["backend"], through_host=r0["through_host"],
+                 host_round_trips_per_step=r0["host_trips"] / n,
+                 kernel_launches_per_rank=n, collectives_per_step=r0["collectives"] / n,
+                 largest_collective_bytes=largest, ring_bytes=r0["ring_bytes"],
+                 collective_bytes_per_step=sum(v[2] for v in r0["record"].values()) / n,
+                 ms_per_step=[r["seconds"] / n * 1e3 for r in ranks],
+                 unsharded_ms_per_step=unsharded_s * 1e3,
+                 state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+                 unsharded_state_bytes=whole_bytes,
+                 peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+                 held_bytes_before_run_per_rank=[r["held_bytes_before_run"] for r in ranks],
+                 unsharded_peak_bytes=peak, card=card)
+            launches[name] = sum(r["launches"]["float32"] for r in ranks)
+
+        # the data-parallel trainer against the unsharded one, same seed
+        env, kw = parallel_trainer()
+        aid = ENV["agent"]
+        tr = BatchedPPOTrainer(env.core, **kw)
+        tr.train_iteration(tr.init(seed=SEED + 1))
+        ts = tr.init(seed=SEED)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ts, metrics = tr.train_iteration(ts)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        engine_steps = tr.T * env.core.action_gap
+        if fused_history_reads.launches["float32"] != engine_steps:
+            raise AssertionError("the unsharded trainer's launches are off")
+        plain_params = flat_params([ts.params[aid], ts.value_params[aid]]).cpu()
+        torch.save({"state": ts.env_states.to("cpu")}, f"{tmp}/ref_trainer.pt")
+        world = PARALLEL["trainer_ranks"]
+        ranks = par.spawn_ranks(trainer_rank, world, (f"{tmp}/ref_trainer.pt",), device="cuda")
+        want_block = (tr.B // world, env.scn.H, env.scn.n_links)
+        param_err = metric_err = 0.0
+        for r in ranks:
+            want = {**dict.fromkeys(r["launches"], 0), "float32": engine_steps}
+            if r["launches"] != want or r["block"] != want_block:
+                raise AssertionError(f"trainer rank {r['rank']}: launches {r['launches']} at "
+                                     f"block {r['block']}")
+            if r["state_max_abs_diff"] != 0.0 or not torch.equal(r["params"],
+                                                                 ranks[0]["params"]):
+                raise AssertionError(f"trainer rank {r['rank']}: env state or replicated "
+                                     f"parameters differ")
+            for k, v in metrics.items():
+                got = r["metrics"][k]
+                if not (math.isfinite(got) and abs(got - v) <= PARALLEL["metric_atol"]
+                        + PARALLEL["rtol"] * abs(v)):
+                    raise AssertionError(f"trainer metric {k}: {got} vs unsharded {v}")
+                metric_err = max(metric_err, abs(got - v))
+            diff = (r["params"] - plain_params).abs()
+            if bool((diff > PARALLEL["param_atol"] + PARALLEL["rtol"] * plain_params.abs()).any()):
+                raise AssertionError(f"trainer parameters differ by {diff.max().item()}")
+            param_err = max(param_err, diff.max().item())
+        r0 = ranks[0]
+        emit("parallel_trainer", dataset=ENV["dataset"], batch=tr.B, ranks=world,
+             block=list(r0["block"]), engine_steps=engine_steps,
+             kernel_launches_per_rank=engine_steps, env_state_bitwise_equal=True,
+             max_abs_param_err=param_err, max_abs_metric_err=metric_err,
+             rtol=PARALLEL["rtol"], param_atol=PARALLEL["param_atol"],
+             metric_atol=PARALLEL["metric_atol"], backend=r0["backend"],
+             collectives={k: v[0] for k, v in r0["record"].items()},
+             collective_bytes={k: v[2] for k, v in r0["record"].items()},
+             host_round_trips=r0["host_trips"],
+             seconds_per_iteration=[r["seconds"] for r in ranks],
+             unsharded_seconds_per_iteration=plain_s, metrics=r0["metrics"], card=card)
+        launches["trainer"] = sum(r["launches"]["float32"] for r in ranks)
+        del env, tr, ts
+
+    # the five dry-run stages at 4 ranks
+    t0 = time.perf_counter()
+    world = PARALLEL["dryrun_ranks"]
+    report = dryrun_multichip_torch.dryrun_multichip(world)
+    want = 1 + 3 + 2 + 3 + 2  # engine steps of the five stages on every rank
+    blocks = dryrun_blocks()  # the shapes phase 3 held the kernel to
+    for rank, (got, at) in enumerate(zip(report["launches_per_rank"],
+                                         report["blocks_per_rank"])):
+        if got != {**dict.fromkeys(got, 0), "float32": want} or at != blocks:
+            raise AssertionError(f"dry run rank {rank}: launches {got} at {at}, expected "
+                                 f"{want} float32 ones at {blocks}")
+    if len(report["launches_per_rank"]) != world or report["device"] != "cuda:0" and (
+            torch.cuda.device_count() < world):
+        raise AssertionError(f"dry run: {report}")
+    emit("parallel_dryrun", ranks=world, seconds=time.perf_counter() - t0,
+         kernel_launches_per_rank=[r["float32"] for r in report["launches_per_rank"]],
+         blocks=blocks, backend=report["backend"],
+         host_round_trips=report["host_trips"],
+         **{k: report[k] for k in ("pg_loss", "ppo_loss", "sac_loss", "link_mass", "link_n",
+                                   "hybrid", "t")}, card=card)
+    launches["dryrun"] = sum(r["float32"] for r in report["launches_per_rank"])
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1470,6 +1865,18 @@ def main() -> int:
     scn = main_scenario()
     from pednstream_tpu_torch.ops import PER_REPLICA_T
 
+    if sys.argv[1:] == ["transport"]:
+        # the choice of transport that parallel.mesh made, measured; not a
+        # phase of the smoke run, and prints no result
+        from pednstream_tpu_torch import parallel as par
+
+        emit("transport", ranks=par.spawn_ranks(
+            transport_rank, PARALLEL["link_ranks"], (20,), device="cuda"), card=card)
+        return 0
+    if sys.argv[1:] == ["parallel"]:
+        # phase 14 alone, for work on the multi-device layer; prints no result
+        emit("parallel_only", launches=phase_parallel(card, scn), card=card)
+        return 0
     record = phase_kernel(card, scn)
     # each path's launches of each form of the kernel, counted from 0
     t_main = time.perf_counter()
@@ -1493,6 +1900,10 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["float32"]["mcp"] = phase_mcp(card)
     seconds["mcp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, n in phase_parallel(card, scn).items():
+        launches["float32"]["parallel_" + path] = n
+    seconds["parallel"] = time.perf_counter() - t0
     emit("seconds_per_path", **seconds, card=card)
 
     print(json.dumps({"kernels": [{

@@ -13,8 +13,9 @@ drivers, evaluation harness, offline metrics, MPC baseline and adapters
 (rl), the fused N-curve history-read kernel (ops, csrc/ncurve.cu), the
 reference-format output handler (io), the visualizers (viz), checkpoints,
 logging and profiling helpers (utils, profiling), the object-style
-``Network`` facade (network) and the service layer (mcp: the tool server,
-its HTTP transport and the agent client).
+``Network`` facade (network), the service layer (mcp: the tool server,
+its HTTP transport and the agent client) and multi-device scaling
+(parallel: replica and link-axis sharding over ``torch.distributed``).
 """
 
 __version__ = "0.1.0"

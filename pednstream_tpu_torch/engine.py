@@ -90,20 +90,33 @@ def binom_fast(nf, p, u, z):
     return torch.where(nf <= _FAST_BINOM_EXACT_N, cnt, gauss)
 
 
-def _binom(n, p, gen: Optional[torch.Generator], stochastic: bool, mode: str = "exact"):
+def draw(gen, normal: bool, shape, dtype, device) -> torch.Tensor:
+    """Uniform [0, 1) (or, ``normal``, standard normal) draws of ``shape``
+    from ``gen``: a ``torch.Generator``, or the block draws of a sharded run
+    (``parallel.mesh.BlockDraws``), which draw at the unsharded shape and
+    keep this rank's block."""
+    if isinstance(gen, torch.Generator):
+        fn = torch.randn if normal else torch.rand
+        return fn(tuple(shape), generator=gen, dtype=dtype, device=device)
+    return gen.draw(normal, tuple(shape), dtype, device)
+
+
+def _binom(n, p, gen, stochastic: bool, mode: str = "exact"):
     """Binomial with numpy-style truncation of a float ``n``.  Deterministic
     mode returns the expectation floor(n) * p.  Stochastic mode draws from
-    ``gen``: ``"exact"`` with ``torch.binomial`` on floor(n) trials,
-    ``"fast"`` one uniform, then one normal per element for
+    ``gen`` (see :func:`draw`): ``"exact"`` with ``torch.binomial`` on
+    floor(n) trials, ``"fast"`` one uniform, then one normal per element for
     :func:`binom_fast` (in float32, as the JAX sampler computes)."""
     nf = torch.floor(torch.clamp(n, min=0.0))
     if not stochastic:
         return nf * p
     if mode == "exact":
         pc = torch.clamp(p, 0.0, 1.0).to(nf.dtype).expand_as(nf).contiguous()
-        return torch.binomial(nf, pc, generator=gen)
-    u = torch.rand(nf.shape, generator=gen, dtype=_f32, device=nf.device)
-    z = torch.randn(nf.shape, generator=gen, dtype=_f32, device=nf.device)
+        if isinstance(gen, torch.Generator):
+            return torch.binomial(nf, pc, generator=gen)
+        return gen.binomial(nf, pc)
+    u = draw(gen, False, nf.shape, _f32, nf.device)
+    z = draw(gen, True, nf.shape, _f32, nf.device)
     return binom_fast(nf.to(_f32), p.to(_f32), u, z).to(nf.dtype)
 
 
@@ -132,9 +145,28 @@ def _write_row(ring: torch.Tensor, t, period: int, value: torch.Tensor) -> None:
         ring[:, t % period] = value
 
 
-def _rev(scn, x):
-    """Value of the reverse link of every link (last axis)."""
-    return x[..., scn.reverse_idx]
+def _rev(scn, x_all):
+    """Value of the reverse link of every link of ``scn``, read from the
+    vector over ALL links ``x_all`` (last axis).  On a block of links
+    (``parallel.link_shard``) ``scn.reverse_idx`` holds the block's rows and
+    ``x_all`` is gathered over the link axis first."""
+    return x_all[..., scn.reverse_idx]
+
+
+class AllLinks:
+    """The cross-link reads of a step that holds every link: nothing to
+    exchange.  ``parallel.link_shard.LinkExchange`` is its counterpart for
+    a step on one rank's block of the links."""
+
+    @staticmethod
+    def gather(*xs):
+        """The vector over all links of each per-link vector in ``xs``."""
+        return xs
+
+    @staticmethod
+    def own(x_all):
+        """This step's links of a vector over all links."""
+        return x_all
 
 
 def _area(scn, ep: EngineParams, st: NetworkState):
@@ -157,9 +189,10 @@ def _history(scn, ep: EngineParams, st: NetworkState, t):
 
 
 def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
-                   gen, stochastic: bool):
-    """Link.cal_sending_flow(t-1) over all links (link.py:216-370); ``t`` is
-    an int or a per-replica ``[B, 1]``.
+                   num_peds_all, gate_all, gen, stochastic: bool):
+    """Link.cal_sending_flow(t-1) over the step's links (link.py:216-370);
+    ``t`` is an int or a per-replica ``[B, 1]``, ``num_peds_all`` and
+    ``gate_all`` the state's counts and gates over all links.
 
     Dtype staging mirrors the reference's NumPy promotion: density,
     congestion and release factors and the diffusion coefficient are
@@ -173,7 +206,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
     # get_density(ts): shared bidirectional for a Link (link.py:190-197),
     # the stored own density for a Separator (link.py:427-428)
     shared_density = torch.where(
-        scn.is_separator, st.density, (num_peds + _rev(scn, num_peds)) / area32)
+        scn.is_separator, st.density, (num_peds + _rev(scn, num_peds_all)) / area32)
     early = ts < ep.free_flow_tau  # link.py:267-269
 
     # free-flow / congestion blended N-curve boundary (link.py:274-288)
@@ -183,7 +216,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
     # float32 product widened to the flow dtype + float32 factor times a flow
     boundary = cf * num_peds + (1.0 - cf) * boundary_freeflow
 
-    front_gate = _rev(scn, st.back_gate)  # link.py:110-126 cross-coupling
+    front_gate = _rev(scn, gate_all)  # link.py:110-126 cross-coupling
     cap = front_gate * ep.k_critical * ep.free_flow_speed * dt  # link.py:296
     sending = torch.minimum(boundary, cap)
     original = sending
@@ -216,18 +249,19 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
     return S, shared_density
 
 
-def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, S, hist,
-                     gen, stochastic: bool):
+def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
+                     num_peds_all, S_all, gen, stochastic: bool):
     """cal_receiving_flow(_with_reverse) (link.py:372-416) and the
     Separator variant (link.py:480-512); ``t`` is an int or a per-replica
-    ``[B, 1]``."""
+    ``[B, 1]``, ``num_peds_all`` and ``S_all`` the state's counts and this
+    step's sending flows over all links."""
     dt = scn.unit_time
     area = _area(scn, ep, st)
     cum_out_at = hist["co"]
     early = (t - hist["tau_shock"]) < 0  # ts + 1 - tau_shockwave < 0
 
     # the count is cast to the flow dtype first (engine.py:374)
-    rev_rand = _binom(_rev(scn, st.num_peds).to(scn.ftype), scn.p_reverse, gen, stochastic,
+    rev_rand = _binom(_rev(scn, num_peds_all).to(scn.ftype), scn.p_reverse, gen, stochastic,
                       scn.binomial_mode)  # link.py:382
     kjam_area = ep.k_jam * area
     b_link = torch.where(
@@ -247,7 +281,7 @@ def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, S, hist,
 
     # reverse-sending subtraction (link.py:407-416); separators skip it
     return torch.where(scn.is_separator, torch.clamp(rf, min=0.0),
-                       torch.clamp(rf - _rev(scn, S), min=0.0))
+                       torch.clamp(rf - _rev(scn, S_all), min=0.0))
 
 
 def _classic_solve(dem_mat, r_pad, exact: bool = False):
@@ -337,19 +371,21 @@ def _node_solve(scn, ep: EngineParams, t, S, R, phi_c=None, phi=None):
 
 
 def _update_link_states(scn, ep: EngineParams, st: NetworkState, t,
-                        inflow_e, outflow_e, gen, stochastic: bool):
+                        inflow_e, outflow_e, links, gen, stochastic: bool):
     """Density and FD speed/travel-time update (network.py:257-264,
     link.py:133-188, Separator variant link.py:430-452).  Writes this
-    step's travel time into ``st.tt_ring`` in place."""
+    step's travel time into ``st.tt_ring`` in place.  The updated density
+    of the reverse links is read through ``links.gather``."""
     W = scn.avg_tt_window
     num_peds = (st.num_peds.to(scn.ftype) + (inflow_e - outflow_e)).to(_f32)
     density = num_peds / _area(scn, ep, st).to(_f32)  # float32 division (link.py:136)
 
-    k_opp = torch.where(scn.is_separator, 0.0, _rev(scn, density))
+    density_all, = links.gather(density)
+    k_opp = torch.where(scn.is_separator, 0.0, _rev(scn, density_all))
     k_eff = density + ep.bi_factor.to(_f32) * k_opp
     v = speed_from_density(k_eff, ep.free_flow_speed, ep.k_critical, ep.k_jam, scn.fd_type)
     if stochastic:
-        noise = torch.randn(v.shape, generator=gen, dtype=scn.ftype, device=v.device)
+        noise = draw(gen, True, v.shape, scn.ftype, v.device)
         v = torch.where(ep.speed_noise_std > 0,
                         (v.to(scn.ftype) + noise * ep.speed_noise_std).to(_f32), v)
     v = torch.clamp(v, min=0.0)
@@ -385,7 +421,7 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t,
 
 def step_fn(scn, ep: EngineParams, st: NetworkState,
             gen: Optional[torch.Generator] = None, stochastic: bool = False,
-            record: bool = True) -> Tuple[NetworkState, Optional[StepOutputs]]:
+            record: bool = True, links=AllLinks) -> Tuple[NetworkState, Optional[StepOutputs]]:
     """One ``network_loading(t)`` step of the whole batch, lockstep (an int
     ``st.t``) or with each replica at its own time (an int32 ``[B]`` one).
 
@@ -393,6 +429,13 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     rings of ``st`` are updated in place and shared with the returned
     state.  Returns ``(new_state, outputs)``; outputs are None unless
     ``record``.
+
+    ``links`` names where the step crosses links.  The per-link chains run
+    on the links that ``scn``, ``ep`` and ``st`` hold; the reverse-link
+    reads, the routing and the node solve take vectors over ALL links from
+    ``links.gather``, and ``links.own`` cuts the solved link flows back.
+    With every link in one place (:class:`AllLinks`) both return their
+    input; ``parallel.link_shard`` passes the exchange of a block of links.
     """
     if stochastic and gen is None:
         raise ValueError("a stochastic step needs a torch.Generator")
@@ -400,12 +443,13 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     H = scn.H
     # against per-link values a per-replica t stands as [B, 1]
     t_link = t.unsqueeze(1) if isinstance(t, torch.Tensor) else t
-
     # 0) the three ring lookbacks in one fused kernel pass
     hist = _history(scn, ep, st, t)
 
     # 1) sending flows from state t-1
-    S, shared_density = _sending_flows(scn, ep, st, t_link, hist, gen, stochastic)
+    num_peds_all, gate_all = links.gather(st.num_peds, st.back_gate)
+    S, shared_density = _sending_flows(scn, ep, st, t_link, hist, num_peds_all, gate_all,
+                                       gen, stochastic)
 
     # 2) dynamic turning fractions (path_finder.py:717-737): dense for the
     #    exact and "optimal" solves, else compact over the routed nodes
@@ -413,23 +457,29 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     dense = scn.exact_parity or scn.assign_flows_type == "optimal"
     if scn.routing is not None:
         cap_default = st.back_gate * ep.k_critical * ep.free_flow_speed * scn.unit_time
+        S_all, density_all, recv_prev_all, cap_all = links.gather(
+            S, shared_density, st.recv_prev, cap_default)
         od_flow_t = _column(ep.od_table, t)
         if dense:
             phi = turning_fractions_dense(
                 scn.routing, scn.n_nodes, scn.max_deg, scn.node_arity, scn.slot_valid,
-                shared_density, st.recv_prev, cap_default, od_flow_t, ep.phi_base)
+                density_all, recv_prev_all, cap_all, od_flow_t, ep.phi_base)
         else:
             phi_c = turning_fractions_step(
-                scn.routing, scn.max_deg, shared_density, st.recv_prev, cap_default,
-                od_flow_t)
-    elif dense:
-        phi = ep.phi_base
+                scn.routing, scn.max_deg, density_all, recv_prev_all, cap_all, od_flow_t)
+    else:
+        S_all, = links.gather(S)
+        if dense:
+            phi = ep.phi_base
 
     # 3) receiving flows (need S of the reverse links)
-    R = _receiving_flows(scn, ep, st, t_link, S, hist, gen, stochastic)
+    R = _receiving_flows(scn, ep, st, t_link, hist, num_peds_all, S_all, gen, stochastic)
 
-    # 4) node merge/diverge and write-back
-    inflow_e, outflow_e, virt_dep, virt_arr = _node_solve(scn, ep, t, S, R, phi_c, phi)
+    # 4) node merge/diverge over all links, and write-back to this step's
+    R_all, = links.gather(R)
+    inflow_all, outflow_all, virt_dep, virt_arr = _node_solve(
+        scn, ep, t, S_all, R_all, phi_c, phi)
+    inflow_e, outflow_e = links.own(inflow_all), links.own(outflow_all)
 
     # 5) cumulative curves (node.py:146-162), ring rows written in place;
     #    the inflow ring feeds the fused read's diffusion taps
@@ -441,7 +491,7 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
 
     # 6) density, speed and travel-time updates
     num_peds, density, speed, travel_time, link_flow, avg_tt, run_sum = (
-        _update_link_states(scn, ep, st, t, inflow_e, outflow_e, gen, stochastic))
+        _update_link_states(scn, ep, st, t, inflow_e, outflow_e, links, gen, stochastic))
 
     new_state = st.replace(
         t=t + 1,
@@ -494,11 +544,12 @@ def make_step(scn, stochastic: bool = False, record: bool = False, donate: bool 
 
 def simulate_batched(scn, ep: EngineParams, states: NetworkState, num_steps: int,
                      gen: Optional[torch.Generator] = None,
-                     stochastic: bool = False) -> NetworkState:
+                     stochastic: bool = False, links=AllLinks) -> NetworkState:
     """Rollout of the batch for ``num_steps`` steps; returns the final
-    state.  The rings of ``states`` are advanced in place."""
+    state.  The rings of ``states`` are advanced in place.  ``links`` as
+    in :func:`step_fn`."""
     for _ in range(num_steps):
-        states, _ = step_fn(scn, ep, states, gen, stochastic, record=False)
+        states, _ = step_fn(scn, ep, states, gen, stochastic, record=False, links=links)
     return states
 
 

@@ -38,6 +38,19 @@ Usage:
         state, metrics = trainer.train_iteration(state)
 
 ``train_iteration`` updates ``state`` in place and returns it.
+
+``mesh=`` (a ``parallel.Mesh`` with an ``env`` axis) makes the trainer
+data-parallel, and the trainer owns the layout: ``num_envs`` stays the
+size of the WHOLE batch, ``init`` keeps this rank's block of the replicas
+(env state, observations, carries, per-replica worlds), and parameters and
+optimizer state are replicated.  Every draw is the unsharded trainer's
+(``parallel.BlockDraws``; the generator is in the same state on every
+rank).  A minibatch is a set of replica indices of the whole batch: each
+rank takes its members, the losses and the advantage normalisation divide
+sums by the whole batch's counts, and gradients are all-reduced before
+the optimizer step, so a sharded iteration equals the unsharded one up to
+the order of the sums.  Reading the minibatch members costs one host read
+per agent and iteration.
 """
 
 import math
@@ -48,18 +61,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..engine import draw
 from ..env.agents import FEATURES_PER_LINK
 from ..env.core import PedNetEnvCore
 from ..interop import params_to_flax
+from ..parallel.mesh import (BlockDraws, Mesh, all_gather, all_reduce_sum,
+                             assert_same_on_all_ranks, shard_batch)
 from ..randomize import randomize_engine_params_batched
 from ..state import EngineParams, NetworkState
 from .networks import build_family, family_carry, init_flax_
 from .optim import AdamState, adam_init, adam_update
 from .ppo import _gaussian_logprob
-
-MESH_NOT_PORTED = ("mesh= (a sharded trainer) is not ported yet: ROADMAP queue 4, "
-                   "multi-device")
-
 
 @dataclass
 class TrainerState:
@@ -102,6 +114,63 @@ def _take(carry, idx):
     return tuple(c[idx] for c in carry)
 
 
+class ReplicaSharding:
+    """A batched trainer's layout over the ``env`` axis of a mesh: which
+    replicas of the whole batch this rank holds, and the few reductions
+    the trainers need.  With ``mesh=None`` the block is the whole batch and
+    every method is the plain single-process operation."""
+
+    AXIS = "env"
+
+    def __init__(self, mesh: Optional[Mesh], num_envs: int):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.block = slice(0, num_envs) if mesh is None else mesh.block(self.AXIS, num_envs)
+        self.local = self.block.stop - self.block.start
+        self.ranks = 1 if mesh is None else mesh.size(self.AXIS)
+
+    def check_scenario(self, scn) -> None:
+        """Every rank must train on the same scenario."""
+        if self.mesh is not None:
+            assert_same_on_all_ranks(scn.engine_params.demand, self.mesh, self.AXIS,
+                                     "the demand table")
+
+    def take(self, tree):
+        """This rank's replicas of a whole-batch tree."""
+        return tree if self.mesh is None or tree is None else shard_batch(
+            tree, self.mesh, self.AXIS)
+
+    def draws(self, gen: torch.Generator):
+        """What the env and the action noise draw from."""
+        return gen if self.mesh is None else BlockDraws(gen, self.mesh, env_axis=self.AXIS)
+
+    def sum(self, x: torch.Tensor, name: str = "all_reduce") -> torch.Tensor:
+        """``x`` summed over the ranks."""
+        return x if self.mesh is None else all_reduce_sum(x, self.mesh, self.AXIS, name)
+
+    def whole(self, xs):
+        """The whole-batch tensors of this rank's blocks ``xs`` (float32,
+        each ``[B_local, ...]``), gathered together in one collective."""
+        if self.mesh is None:
+            return xs
+        flat = all_gather(torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=1),
+                          self.mesh, self.AXIS, dim=0, name="replicas")
+        parts = flat.split([x[0].numel() for x in xs], dim=1)
+        return [p.reshape(flat.shape[:1] + x.shape[1:]) for p, x in zip(parts, xs)]
+
+    def members(self, idx_sets: torch.Tensor):
+        """Each row of global replica indices cut to this rank's members,
+        as local indices (one host read of the rows)."""
+        if self.mesh is None:
+            return idx_sets
+        lo, hi = self.block.start, self.block.stop
+        with self.mesh.host_trip():
+            rows = idx_sets.cpu()
+            return [(row[(row >= lo) & (row < hi)] - lo).to(idx_sets.device) for row in rows]
+
+
 class BatchedPPOTrainer:
     def __init__(
         self,
@@ -126,12 +195,13 @@ class BatchedPPOTrainer:
         mesh=None,
         gate_anchor: str = "current",
     ):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         if gate_anchor not in ("current", "open"):
             raise ValueError("gate_anchor must be 'current' or 'open'")
         if num_envs % minibatches:
             raise ValueError("num_envs must divide evenly into minibatches")
+        self.mesh = mesh
+        self.sharding = ReplicaSharding(mesh, num_envs)
+        self.Bl = self.sharding.local  # this rank's replicas (all of them without a mesh)
         self.gate_anchor = gate_anchor
         self.core = core
         self.scn = core.scn
@@ -193,7 +263,8 @@ class BatchedPPOTrainer:
                             meta["fpl"], self.hidden_dim)
 
     def _batched_carry(self, aid: str, B: Optional[int] = None):
-        return family_carry(self._family(aid), B or self.B, self.agents[aid]["act_dim"],
+        return family_carry(self._family(aid), self.Bl if B is None else B,
+                            self.agents[aid]["act_dim"],
                             self.hidden_dim, self.device)
 
     def _shape_obs(self, aid: str, o: torch.Tensor) -> torch.Tensor:
@@ -206,9 +277,10 @@ class BatchedPPOTrainer:
     # -- setup -----------------------------------------------------------------
 
     def init(self, seed: int = 0) -> TrainerState:
+        self.sharding.check_scenario(self.scn)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        env_states, obs = self.core.batch_reset(self.B)
-        eps = _draw_worlds(self.scn, gen, self.B, self.randomize_fraction) if self.randomize else None
+        env_states, obs = self.core.batch_reset(self.Bl)
+        eps = self._worlds(gen) if self.randomize else None
         init_gen = torch.Generator().manual_seed(seed)  # weights: drawn on the host
         params, vparams, opts, acar, ccar = {}, {}, {}, {}, {}
         for aid in self.agents:
@@ -223,6 +295,11 @@ class BatchedPPOTrainer:
                             engine_params=eps, gen=gen, iteration=0)
 
     # -- helpers -----------------------------------------------------------------
+
+    def _worlds(self, gen: torch.Generator) -> EngineParams:
+        """The whole batch's world draws, cut to this rank's replicas."""
+        return self.sharding.take(
+            _draw_worlds(self.scn, gen, self.B, self.randomize_fraction))
 
     def _agent_obs(self, obs, aid):
         if aid == "sep":
@@ -255,13 +332,14 @@ class BatchedPPOTrainer:
         steps = {k: {aid: [] for aid in self.agents}
                  for k in ("obs", "delta", "logp", "value", "reward")}
         dones = []
+        draws = self.sharding.draws(ts.gen)
         for _ in range(self.T):
             acts = {}
             for aid in self.agents:
                 o = self._shape_obs(aid, self._agent_obs(obs, aid))
                 mu, log_std, acar[aid] = ts.params[aid](o, acar[aid])
                 v, ccar[aid] = ts.value_params[aid](o, ccar[aid])
-                noise = torch.randn(mu.shape, generator=ts.gen, device=self.device)
+                noise = draw(draws, True, mu.shape, torch.float32, self.device)
                 delta = torch.clamp(mu + torch.exp(log_std) * noise,
                                     -self.max_delta, self.max_delta)
                 for k, x in (("obs", o), ("delta", delta), ("value", v),
@@ -269,23 +347,23 @@ class BatchedPPOTrainer:
                     steps[k][aid].append(x)
                 acts[aid] = self._absolute(aid, self._agent_obs(obs, aid), delta)
             env_states, obs, rewards, done, _ = self.core._step_impl(
-                env_states, acts, eps, ts.gen)
+                env_states, acts, eps, draws)
             if env_states.t > self.scn.simulation_steps:
                 # the lockstep batch finished its episode: fresh engine
                 # states (the stepped rings are updated in place and not
                 # reused), fresh carries and, randomized, fresh worlds
-                env_states = self.scn.init_state(self.B)
+                env_states = self.scn.init_state(self.Bl)
                 for aid in self.agents:
                     acar[aid] = self._batched_carry(aid)
                     ccar[aid] = self._batched_carry(aid)
                 if self.randomize:
-                    eps = _draw_worlds(self.scn, ts.gen, self.B, self.randomize_fraction)
+                    eps = self._worlds(ts.gen)
                 obs = self.core._observations(env_states)
             sep_key = self.spec.sep_ids[0] if self.spec.sep_ids else "sep"
             for aid in self.agents:
                 r = rewards.get(sep_key if aid == "sep" else aid)
                 steps["reward"][aid].append(
-                    r if r is not None else torch.zeros(self.B, device=self.device))
+                    r if r is not None else torch.zeros(self.Bl, device=self.device))
             dones.append(done.to(torch.float32))
         traj = {k: {aid: torch.stack(xs) for aid, xs in per.items()}
                 for k, per in steps.items()}
@@ -325,13 +403,29 @@ class BatchedPPOTrainer:
             vs.append(v)
         return torch.stack(mus), torch.stack(log_stds), torch.stack(vs)
 
-    def _index_sets(self, gen: torch.Generator) -> torch.Tensor:
+    def _index_sets(self, gen: torch.Generator):
         """``[epochs * minibatches, B / minibatches]`` replica indices: one
-        permutation of B per epoch, cut into minibatch slices."""
+        permutation of B per epoch, cut into minibatch slices.  On a mesh,
+        each row's members among this rank's replicas (rows of unequal
+        length, some perhaps empty)."""
         mb = self.B // self.minibatches
-        return torch.cat([
+        return self.sharding.members(torch.cat([
             torch.randperm(self.B, generator=gen, device=self.device).reshape(-1, mb)
-            for _ in range(self.epochs)])
+            for _ in range(self.epochs)]))
+
+    def _mean(self, x: torch.Tensor, n_replicas: int) -> torch.Tensor:
+        """Mean of ``x [T, mb, ...]`` over a minibatch of ``n_replicas``
+        replicas of the whole batch: this rank's share of it, which sums to
+        the mean over the ranks."""
+        return x.sum() / (x.shape[0] * math.prod(x.shape[2:]) * n_replicas)
+
+    def _moments(self, x: torch.Tensor):
+        """Mean and population standard deviation of ``x`` over the whole
+        batch."""
+        n = x.numel() * self.sharding.ranks
+        mean = self.sharding.sum(x.sum(), "advantage_moments") / n
+        var = self.sharding.sum(((x - mean) ** 2).sum(), "advantage_moments") / n
+        return mean, torch.sqrt(var)
 
     def _agent_update(self, aid, nets, opt, obs_seq, dones, carry0,
                       act_seq, old_logp, adv, ret, idx_sets):
@@ -346,6 +440,7 @@ class BatchedPPOTrainer:
         zero = torch.zeros((), device=self.device)
         stopped = torch.zeros((), dtype=torch.bool, device=self.device)
         total_loss, n_applied, last_kl = zero, zero, zero
+        mb = self.B // self.minibatches
         for idx in idx_sets:
             c0 = (_take(carry0[0], idx), _take(carry0[1], idx))
             mu, log_std, v = self._sequence_forward(aid, nets, obs_seq[:, idx],
@@ -355,12 +450,21 @@ class BatchedPPOTrainer:
             a = adv[:, idx]
             s1 = ratio * a
             s2 = torch.clamp(ratio, 1 - self.eps_clip, 1 + self.eps_clip) * a
-            entropy = (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum(-1).mean()
-            v_loss = ((v - ret[:, idx]) ** 2).mean()
-            kl = torch.mean(old_logp[:, idx] - logp).detach()
-            loss = (-torch.minimum(s1, s2).mean() - self.entropy_coef * entropy
+            entropy = self._mean((log_std + 0.5 * math.log(2 * math.pi * math.e)).sum(-1), mb)
+            v_loss = self._mean((v - ret[:, idx]) ** 2, mb)
+            kl = self._mean(old_logp[:, idx] - logp, mb).detach()
+            loss = (-self._mean(torch.minimum(s1, s2), mb) - self.entropy_coef * entropy
                     + self.value_coef * v_loss)
             grads = torch.autograd.grad(loss, params)
+            if self.mesh is not None:
+                # this rank's shares of the gradient, the loss and the KL
+                # summed over the ranks in one collective
+                flat = self.sharding.sum(torch.cat(
+                    [g.reshape(-1) for g in grads] + [loss.detach()[None], kl[None]]),
+                    "gradients")
+                sizes = [g.numel() for g in grads]
+                grads = [f.view_as(g) for f, g in zip(flat[:-2].split(sizes), grads)]
+                loss, kl = flat[-2], flat[-1]
             adam_update(params, grads, opt, self.lr, max_norm=0.5, keep=stopped)
             total_loss = total_loss + torch.where(stopped, zero, loss.detach())
             n_applied = n_applied + torch.where(stopped, zero, zero + 1)
@@ -384,14 +488,16 @@ class BatchedPPOTrainer:
                 last_v, _ = nets[1](o_last, ccar[aid])
                 adv, ret = self._gae(self.reward_scale * traj["reward"][aid],
                                      traj["value"][aid], traj["done"], last_v)
-                adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+                mean, std = self._moments(adv)
+                adv = (adv - mean) / (std + 1e-8)
             carry0 = (ts.actor_carry[aid], ts.critic_carry[aid])  # rollout start
             loss, kl = self._agent_update(
                 aid, nets, ts.opt_states[aid], traj["obs"][aid], traj["done"], carry0,
                 traj["delta"][aid], traj["logp"][aid], adv, ret, self._index_sets(ts.gen))
             metrics[f"{aid}/loss"] = loss
             metrics[f"{aid}/kl"] = kl
-            metrics[f"{aid}/reward"] = traj["reward"][aid].sum(0).mean()
+            metrics[f"{aid}/reward"] = self.sharding.sum(
+                traj["reward"][aid].sum(), "metrics") / self.B
         ts.env_states, ts.obs, ts.engine_params = env_states, obs, eps
         ts.actor_carry, ts.critic_carry = acar, ccar
         ts.iteration += 1

@@ -24,6 +24,18 @@ unchanged parameters instead; both leave the parameters as they were.)  Random d
 same seed), so the JAX trainer's streams are matched in distribution
 only.
 
+``mesh=`` (a ``parallel.Mesh`` with an ``env`` axis) shards the collection:
+``num_envs`` stays the size of the WHOLE batch, each rank steps its block
+of the replicas with the unsharded trainer's draws
+(``parallel.BlockDraws``), and one all-gather per RL step brings every
+rank the whole batch's actions, observations, rewards and done flags.  The
+replay ring, the frame stacks, the return accumulators and the running
+moments are then the unsharded trainer's on every rank (the moments are
+taken over the gathered batch, so they are equal bit for bit), and so are
+the updates: minibatches come from the replicated ring with the same
+draws, so parameters and optimizer state stay replicated without a
+gradient exchange.
+
 Usage:
     trainer = BatchedSACTrainer(env.core, num_envs=64, randomize=True)
     state = trainer.init(seed=0)
@@ -45,7 +57,8 @@ import torch
 from ..env.agents import FEATURES_PER_LINK
 from ..env.core import PedNetEnvCore
 from ..state import EngineParams, NetworkState
-from .batched_ppo import MESH_NOT_PORTED, _draw_worlds
+from ..engine import draw
+from .batched_ppo import ReplicaSharding, _draw_worlds
 from .networks import SACActor, SACCritic, init_flax_
 from .optim import adam_init
 from .sac import checkpoint, sac_update
@@ -93,10 +106,11 @@ class BatchedSACTrainer:
         gate_anchor: str = "open",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         if gate_anchor not in ("current", "open"):
             raise ValueError("gate_anchor must be 'current' or 'open'")
+        self.mesh = mesh
+        self.sharding = ReplicaSharding(mesh, num_envs)
+        self.Bl = self.sharding.local  # this rank's replicas (all of them without a mesh)
         self.core = core
         self.scn = core.scn
         self.spec = core.spec
@@ -149,13 +163,13 @@ class BatchedSACTrainer:
 
     def init(self, seed: int = 0) -> SACTrainerState:
         dev = self.device
+        self.sharding.check_scenario(self.scn)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        env_states, obs_env = self.core.batch_reset(self.B)
-        eps = (_draw_worlds(self.scn, gen, self.B, self.randomize_fraction)
-               if self.randomize else None)
+        env_states, obs_env = self.core.batch_reset(self.Bl)
+        eps = self._worlds(gen) if self.randomize else None
         init_gen = torch.Generator().manual_seed(seed)  # weights: drawn on the host
         params, opts, rms, rets, stacks, bufs = {}, {}, {}, {}, {}, {}
-        obs_raw = {aid: self._agent_obs(obs_env, aid) for aid in self.agents}
+        obs_raw = self._whole_obs(obs_env)
         for aid, meta in self.agents.items():
             dims = (meta["obs_dim"], meta["act_dim"], self.S, self.hidden_dim)
             actor = init_flax_(SACActor(*dims), init_gen).to(dev)
@@ -190,6 +204,17 @@ class BatchedSACTrainer:
             engine_params=eps, gen=gen, iteration=0)
 
     # -- helpers -----------------------------------------------------------------
+
+    def _worlds(self, gen: torch.Generator) -> EngineParams:
+        """The whole batch's world draws, cut to this rank's replicas."""
+        return self.sharding.take(
+            _draw_worlds(self.scn, gen, self.B, self.randomize_fraction))
+
+    def _whole_obs(self, obs_env) -> Dict[str, torch.Tensor]:
+        """Every agent's raw observation of the whole batch from this
+        rank's env observations."""
+        return dict(zip(self.agents, self.sharding.whole(
+            [self._agent_obs(obs_env, aid) for aid in self.agents])))
 
     def _agent_obs(self, obs_env, aid):
         meta = self.agents[aid]
@@ -239,24 +264,37 @@ class BatchedSACTrainer:
         B, dev = self.B, self.device
         env_states, obs, eps = ts.env_states, dict(ts.obs), ts.engine_params
         rewards_sum = torch.zeros((), device=dev)
+        mine = self.sharding.block  # this rank's replicas of the whole-batch leaves
+        draws = self.sharding.draws(ts.gen)
         for _ in range(self.C):
             deltas, abs_acts = {}, {}
-            for aid in self.agents:
-                a, _ = ts.params[aid]["actor"].sample(ts.stacks[aid], ts.gen)
+            for aid, meta in self.agents.items():
+                noise = draw(draws, True, (self.Bl, meta["act_dim"]), torch.float32, dev)
+                a, _ = ts.params[aid]["actor"].sample(ts.stacks[aid][mine], eps=noise)
                 deltas[aid] = a  # the ring stores the [-1, 1] pre-scale action
-                abs_acts[aid] = self._absolute(aid, obs[aid], a * self.max_delta)
+                abs_acts[aid] = self._absolute(aid, obs[aid][mine], a * self.max_delta)
             env_actions = {aid: abs_acts[aid] for aid in self.agents
                            if self.agents[aid]["kind"] == "gate"}
             if self.spec.sep_ids:
                 env_actions["sep"] = torch.cat([abs_acts[sid] for sid in self.spec.sep_ids],
                                                dim=-1)
             env_states, obs_env, rewards, done, _ = self.core._step_impl(
-                env_states, env_actions, eps, ts.gen)
-            done_f = done.to(torch.float32)
+                env_states, env_actions, eps, draws)
+            # the whole batch's transition on every rank (one collective)
+            zeros = torch.zeros(self.Bl, device=dev)
+            n = len(self.agents)
+            whole = self.sharding.whole(
+                [deltas[aid] for aid in self.agents]
+                + [self._agent_obs(obs_env, aid) for aid in self.agents]
+                + [rewards.get(aid, zeros) for aid in self.agents] + [done.to(torch.float32)])
+            deltas = dict(zip(self.agents, whole[:n]))
+            obs = dict(zip(self.agents, whole[n:2 * n]))
+            rewards = dict(zip(self.agents, whole[2 * n:3 * n]))
+            done_f = whole[-1]
             idx = (ts.ptr + torch.arange(B, device=dev)) % self.cap
             zeros = torch.zeros(B, device=dev)
             for aid in self.agents:
-                o = obs[aid] = self._agent_obs(obs_env, aid)
+                o = obs[aid]
                 r_a = ts.rms[aid]
                 r_a["obs_mean"], r_a["obs_var"], r_a["obs_count"] = self._rms_update(
                     r_a["obs_mean"], r_a["obs_var"], r_a["obs_count"], o)
@@ -283,12 +321,11 @@ class BatchedSACTrainer:
             if env_states.t > self.scn.simulation_steps:
                 # the lockstep batch finished: fresh engine states, stacks
                 # anchored at the fresh obs, fresh world draws
-                env_states = self.scn.init_state(B)
+                env_states = self.scn.init_state(self.Bl)
                 if self.randomize:
-                    eps = _draw_worlds(self.scn, ts.gen, B, self.randomize_fraction)
-                fresh = self.core._observations(env_states)
+                    eps = self._worlds(ts.gen)
+                obs = self._whole_obs(self.core._observations(env_states))
                 for aid in self.agents:
-                    obs[aid] = self._agent_obs(fresh, aid)
                     fo_n = self._normalize(aid, ts.rms[aid], obs[aid])
                     ts.stacks[aid] = fo_n[:, None, :].repeat(1, self.S, 1)
         ts.env_states, ts.obs, ts.engine_params = env_states, obs, eps

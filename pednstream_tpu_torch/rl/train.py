@@ -5,9 +5,11 @@ learner episode loop (rl/agents/PPO_backup.py:762-956, rl/train_rl.py:
 35-106): per-episode rollouts over a dict of agents with delta->absolute
 action conversion, per-episode PPO updates, and validation-gated best
 checkpointing.  ``train_off_policy_multi_agent`` is the SAC loop
-(rl/agents/SAC_copy.py:157-310).  ``init_train_state`` is the policy and
-optimizer state of the JAX package's multi-device demo step; the step
-itself (``make_dp_train_step``) comes with the multi-device slice.
+(rl/agents/SAC_copy.py:157-310).  ``init_train_state`` and
+``make_dp_train_step`` are the JAX package's minimal data-parallel
+policy-gradient step (a demo for the multi-device dry run; the production
+trainers are ``BatchedPPOTrainer(mesh=...)`` and
+``BatchedSACTrainer(mesh=...)``).
 
     python -m pednstream_tpu_torch.rl.train --dataset butterfly_scC --algo ppo \\
         --episodes 100 --device cuda
@@ -21,10 +23,12 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT, resolve
+from ..engine import draw
 from ..env.agents import FEATURES_PER_LINK, controlled_links_adjacency
+from ..parallel.mesh import BlockDraws, all_reduce_sum
 from .networks import MLPPolicy, init_flax_
-from .optim import adam_init
-from .ppo import PPOAgent
+from .optim import adam_init, adam_update
+from .ppo import PPOAgent, _gaussian_logprob
 from .rl_utils import validate_and_save_best
 from .rule_based import NoControlAgent, RuleBasedGaterAgent, RuleBasedSeparatorAgent
 from .sac import SACAgent
@@ -242,6 +246,75 @@ def init_train_state(core, seed: int = 0, device=DEFAULT) -> dict:
         "opt_state": adam_init(policy.parameters()),
         "act_dim": act_dim,
     }
+
+
+def make_dp_train_step(core, mesh, axis: str = "env"):
+    """DEMO ONLY — do not train with this.  One sharded one-step REINFORCE
+    update (``adv = r - mean r``): each rank steps its block of the
+    replicas, and the gradients are all-reduced over ``axis`` so that the
+    replicated parameters take the same Adam step on every rank.
+
+    Returns ``step(states, obs, train_state, gen, noise=None)`` ->
+    ``(states, obs, train_state, {"loss": ..., "grads": [...]})`` (the
+    all-reduced loss and gradients) on this rank's block
+    (``parallel.shard_batch`` of the whole batch); ``gen`` is in the same
+    state on every rank, and ``noise`` (standard normal, ``[B_local,
+    act_dim]``) replaces the action noise drawn from it.  ``train_state`` is
+    updated in place.
+
+    The gradient is the score-function (REINFORCE) one: the sampled action
+    ``act = mu + exp(log_std) * noise`` is detached, the env runs on it
+    under ``no_grad`` (the engine writes its rings in place), and ``loss =
+    -(logp(act) * adv).mean()`` is differentiated through ``logp`` alone.
+    The JAX step as written keeps ``act`` attached: its ``logp`` is then
+    ``-noise**2 / 2 - log_std - c``, whose gradient times a zero-mean
+    advantage vanishes, and all that it differentiates is the path through
+    the env's rewards, which this port does not follow.  With
+    ``stop_gradient`` on the action and the rewards the JAX gradient is
+    this one (``tests/test_torch_parallel.py``)."""
+    spec = core.spec
+    dev = core.scn.device
+
+    def default_actions(B):
+        actions = {}
+        if spec.sep_ids:
+            mid = torch.as_tensor(np.asarray(spec.sep_total_width) / 2, device=dev)
+            actions["sep"] = mid.to(torch.float32).expand(B, -1)
+        for i, gid in enumerate(spec.gate_ids):
+            w = torch.as_tensor(np.asarray(spec.gate_link_widths[i], np.float32), device=dev)
+            actions[gid] = w.expand(B, -1)
+        return actions
+
+    def step(states, obs, train_state, gen, noise=None):
+        policy, agent_id = train_state["policy"], train_state["agent_id"]
+        params = train_state["params"]
+        agent_obs = obs[agent_id] if agent_id in obs else obs["sep"][:, 0]
+        B = agent_obs.shape[0]
+        n_all = B * mesh.size(axis)
+        mu, log_std, _ = policy(agent_obs)
+        if noise is None:
+            noise = draw(BlockDraws(gen, mesh, env_axis=axis), True, mu.shape, mu.dtype, dev)
+        act = (mu + torch.exp(log_std) * noise).detach()
+        actions = default_actions(B)
+        if agent_id in actions:
+            actions[agent_id] = act
+        with torch.no_grad():
+            new_states, new_obs, rewards, _ = core.batch_step(
+                states, actions, BlockDraws(gen, mesh, env_axis=axis))
+            r = rewards.get(agent_id, torch.zeros(B, device=dev))
+            adv = r - all_reduce_sum(r.sum(), mesh, axis, "reward_mean") / n_all
+        logp = _gaussian_logprob(mu, log_std, act)
+        loss = -(logp * adv).sum() / n_all  # this rank's share of the mean
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + [loss.detach()[None]]),
+                              mesh, axis, "gradients")
+        grads = [f.view_as(p) for f, p in zip(flat[:-1].split([p.numel() for p in params]),
+                                              params)]
+        adam_update(params, grads, train_state["opt_state"], train_state["tx"]["lr"])
+        return new_states, new_obs, train_state, {"loss": flat[-1], "grads": grads}
+
+    return step
 
 
 # -- CLI (reference rl/train_rl.py:35-247) ---------------------------------------

@@ -174,9 +174,13 @@ def test_ppo_iteration_and_episode_boundary(env, net_type):
 
 
 def test_mesh_is_queue_4(env):
+    """The multi-device slice is ported: ``mesh=`` takes a
+    ``parallel.Mesh`` (tests/test_torch_parallel.py trains on one), and
+    anything else raises ``TypeError``."""
     for cls in (BatchedPPOTrainer, BatchedSACTrainer):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             cls(env.core, mesh=object())
+        assert cls(env.core, mesh=None).mesh is None
 
 
 # -- BatchedSACTrainer -------------------------------------------------------------

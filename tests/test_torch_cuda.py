@@ -6,8 +6,9 @@ different times stepped on the card against the CPU;
 an entry point called with no device; engine rollouts on cuda against the
 CPU, a golden fixture in exact-parity mode, a short randomized env
 episode, the network families on the card against the CPU, one batched
-PPO iteration, and the service layer (the MCP workflow, and two
-simulations stepped from two threads).  Every test here needs a GPU, skips without one (decided in
+PPO iteration, the service layer (the MCP workflow, and two
+simulations stepped from two threads), and a link-sharded rollout over two
+ranks that share the card.  Every test here needs a GPU, skips without one (decided in
 the ``cuda`` fixture), and is marked ``slow``, so the default tiers leave it
 out.  The file imports no JAX (nor does it need tests/conftest.py), so on
 a machine with a card it runs as
@@ -81,7 +82,9 @@ def assert_kernel_is_plain(ops, dtype=torch.float32):
 # the served simulation's (melbourne, one replica, full-horizon rings)
 @pytest.mark.parametrize("B,H,E", [(1, 16, 1), (5, 17, 1000), (2, 64, 4097), (1024, 16, 938),
                                    (256, 701, 168), (256, 64, 168), (64, 64, 168),
-                                   (1, 501, 938)])
+                                   (1, 501, 938),
+                                   # the link-sharded and hybrid blocks of melbourne
+                                   (1024, 16, 469), (512, 16, 469)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
     assert_kernel_is_plain(make_operands(B, H, E, seed=B + H + E, device=cuda))
 
@@ -424,3 +427,55 @@ def test_mcp_two_threads_on_cuda(cuda, tmp_path, monkeypatch):
             if isinstance(x, torch.Tensor):
                 assert torch.equal(x, getattr(alone.engine_state, leaf)), (name, leaf)
         assert float(sim.engine_state.cum_in.sum()) > 0
+
+
+def link_sharded_butterfly_rank(rank, world, device, steps, seed):
+    """One of the ranks of test_link_sharded_rollout_on_cuda."""
+    from pednstream_tpu_torch import parallel as par
+
+    args = NetworkEnvGenerator(device=device).scenario_args("butterfly_scC")
+    args["params"]["seed"] = 3  # the dataset ships unseeded
+    scn = build_scenario(**args, history_window=64, binomial_mode="fast", device=device)
+    mesh = par.make_mesh(world, axis="link", device=device)
+    block = par.shard_link_state(scn.init_state(8), mesh)
+    run = par.make_link_sharded_simulate(scn, mesh, steps, stochastic=True)
+    ep = par.shard_link_params(scn.engine_params, mesh)
+    before = fused_history_reads.launches["float32"]
+    torch.cuda.set_sync_debug_mode("error")  # host trips only inside the exchange
+    try:
+        final = run(ep, block, torch.Generator(device=device).manual_seed(seed))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = fused_history_reads.launches["float32"] - before
+    n_coll, n_bad = par.assert_no_full_ring_collectives(mesh, 8 * scn.H * scn.n_links * 4)
+    assert final.cum_in_ring.is_cuda and final.cum_in_ring.shape[-1] == scn.n_links // world
+    return {"state": par.unshard_state(final, mesh).to("cpu"), "launches": launches,
+            "collectives": n_coll, "host_trips": mesh.host_trips,
+            "backend": torch.distributed.get_backend()}
+
+
+def test_link_sharded_rollout_on_cuda(cuda):
+    """butterfly_scC, 8 replicas, 60 fast-stochastic steps link-sharded over
+    two ranks on the card (each launching the kernel on its block), bitwise
+    equal to the unsharded rollout on the card from the same seed."""
+    from pednstream_tpu_torch import parallel as par
+    from pednstream_tpu_torch.ops import _build
+
+    steps, seed = 60, 5
+    _build.build()  # the ranks only load the library
+    args = NetworkEnvGenerator().scenario_args("butterfly_scC")
+    args["params"]["seed"] = 3
+    scn = build_scenario(**args, history_window=64, binomial_mode="fast", device=cuda)
+    assert scn.n_links % 2 == 0
+    ref, _ = simulate(scn, scn.engine_params, scn.init_state(8), steps,
+                      gen=torch.Generator(device=cuda).manual_seed(seed), stochastic=True,
+                      record=False)
+    assert float(ref.num_peds.sum()) > 0
+    for r in par.spawn_ranks(link_sharded_butterfly_rank, 2, (steps, seed), device="cuda"):
+        assert r["launches"] == steps and r["collectives"] == 4 * steps
+        for leaf, x in vars(ref).items():
+            got = getattr(r["state"], leaf)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x.cpu(), got), leaf
+            else:
+                assert x == got
