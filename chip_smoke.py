@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py parallel`` runs phase 14 alone and prints no result
-line.)
+(``python3 chip_smoke.py kernel``, ``parallel``, ``zoo_cli`` or ``examples``
+runs phase 3, 14, 15 or 16 alone and prints no result line.)
 
 Phases, each printing one JSON line (a failing phase raises, and the script
 exits non-zero):
@@ -82,8 +82,9 @@ exits non-zero):
    per-replica-``t`` form).
 12. evaluate: ``evaluate_agents("45_intersections", ...)`` on the card as
    ``scripts/train_zoo.py`` evaluates the shipped PPO policy (option2,
-   action_gap 15), with the rule-based and no-control policies, two runs
-   each (run 1 on a randomized network); every run directory is checked
+   action_gap 15), with the rule-based and no-control policies, one run
+   each on the nominal network (phase 15 runs a randomized one); every run
+   directory is checked
    (files, T + 1 columns, finite metrics, mass conservation); one more run
    is read back (``load_simulation``, ``NetworkVisualizer``) against the
    history the env recorded, exported to HTML and, where matplotlib is
@@ -112,18 +113,43 @@ exits non-zero):
    (``gloo``, which moves the exchanged CUDA tensors through host memory
    itself; ``nccl`` where there is a card per rank), each rank launching the kernel on its own
    block.  Link-sharded: melbourne, 1024 replicas, H = 16, the fast
-   sampler, 100 stochastic steps over 2 link ranks with no host sync
+   sampler, 50 stochastic steps over 2 link ranks with no host sync
    allowed outside the exchange, every state field BITWISE equal to the
    unsharded run in this process from the same state and seed, one float32
    launch per step per rank at (1024, 16, 469), the collectives per step
    and their largest size against a ring's, and the bytes a rank holds
    beside the unsharded run's.  Hybrid: the same on a 2 x 2 (env x link)
-   mesh, 50 steps, (512, 16, 469) per rank.  Data-parallel trainer: phase
+   mesh, 25 steps, (512, 16, 469) per rank.  Data-parallel trainer: phase
    8's trainer (env with the fast sampler) over 2 ranks, one iteration from
    the same seed as an unsharded one here: env state bitwise, metrics and
    parameters within rtol 1e-4 (atol 1e-6 and 1e-5), 240 launches per rank
    at (128, 64, 168).  Then ``dryrun_multichip_torch.py``'s five stages at
    4 ranks.  A rank that fails fails the phase.
+15. zoo_cli: the zoo pipeline (``pednstream_tpu_torch.scripts.train_zoo``)
+   on butterfly_scC at the shipped trainer's configuration (256 replicas,
+   16 RL steps, H = 64, attention, action_gap 15) into a temporary
+   ``--out``: ``train_ppo`` for 2 iterations over 2 seeds (snapshot,
+   selection, export, then the no-regress gate against the shipped
+   policy), ``train_ppo`` again for 1 iteration into the same ``--out``
+   (the gate: it replaces the checkpoint or leaves a ``.candidate``, and
+   says which), ``train_sac_batched`` for 1 iteration, validated, and
+   ``evaluate_zoo`` with 2 runs of every policy, MPC included.  Checks the
+   exported files against the shipped checkpoint's, the export acting on
+   the card as on the CPU (rtol 1e-5), ``results.json``'s policies and row
+   keys against ``artifacts/eval/butterfly_scC``, one float32 launch per
+   engine step, and that no file under ``artifacts/`` changed (sizes and
+   mtimes).  Prints wall ms per PPO iteration, validation and evaluation
+   seconds.
+16. examples: each ``pednstream_tpu_torch.examples`` module's run at its
+   shipped network and horizon on the card (melbourne, long_corridor,
+   six_node, spike, forky_queues, nine_node, delft_exp, big_network,
+   grid_scale at 16 replicas x 100 steps, metered_corridor's four
+   policies), then link_sharded_scale's 165 x 165 grid (108,240 links, 4
+   replicas, H = 16, 200 steps) over 2 ranks sharing the card.  For each:
+   env-steps per second, one float32 launch per engine step (per rank),
+   mass conserved, state finite and non-negative, arrivals (departures on
+   the grids, whose origins lie farther from a destination than the
+   horizon walks).
 
 It then prints the kernels' record, the card's ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.
@@ -158,7 +184,7 @@ ZOO_RTOL = 1e-5
 HETERO = {"groups": 8, "apart": 50, "rl_steps": 100, "deterministic_steps": 10,
           "exact_dataset": "butterfly_scC", "exact_steps": 40}
 EVALUATE = {"dataset": "45_intersections", "obs_mode": "option2", "action_gap": 15,
-            "algos": ["ppo", "rule_based", "no_control"], "num_runs": 2,
+            "algos": ["ppo", "rule_based", "no_control"], "num_runs": 1,
             "checkpoint": "artifacts/zoo/ppo_agents_45_intersections",
             "mpc_dataset": "butterfly_scC", "mpc_action_gap": 60}
 # the served simulation: melbourne as the dataset ships it, one replica
@@ -170,11 +196,29 @@ MCP = {"dataset": "melbourne", "links": 938, "nodes": 341, "steps": 500,
 MCP_SHAPE = (1, MCP["steps"] + 1, MCP["links"])
 # the sharded runs: melbourne's 938 links over 2 link ranks, whole batch and
 # (on the 2 x 2 mesh) half; the zoo trainer's 256 replicas over 2 ranks
-PARALLEL = {"link_ranks": 2, "steps": 100, "hybrid": (2, 2), "hybrid_steps": 50,
+PARALLEL = {"link_ranks": 2, "steps": 50, "hybrid": (2, 2), "hybrid_steps": 25,
             "trainer_ranks": 2, "dryrun_ranks": 4, "rtol": 1e-4, "metric_atol": 1e-6,
             "param_atol": 1e-5}
 LINK_BLOCK = (MAIN["batch"], MAIN["history_window"], 938 // 2)
 HYBRID_BLOCK = (MAIN["batch"] // 2, MAIN["history_window"], 938 // 2)
+# the zoo pipeline (pednstream_tpu_torch.scripts.train_zoo) on butterfly_scC
+# at the shipped trainer's configuration: 20 links, H = 64, 600 steps
+ZOO_CLI = {"dataset": "butterfly_scC", "action_gap": 15, "links": 20, "iterations": 2,
+           "seeds": 2, "regate_iterations": 1, "sac_iterations": 1, "eval_runs": 2,
+           "with_mpc": True, "shipped": "artifacts/zoo/ppo_agents_butterfly_scC",
+           "results": "artifacts/eval/butterfly_scC/results.json"}
+ZOO_TRAIN_SHAPE = (256, 64, ZOO_CLI["links"])  # its trainer's read
+ZOO_VALIDATE_SHAPE = (1, 64, ZOO_CLI["links"])  # its validation and evaluation episodes
+# the examples (pednstream_tpu_torch.examples) at their shipped networks and
+# horizons; grid_50x50's batch and the link-sharded grid over 2 ranks
+EXAMPLES = {"grid_batch": 16, "grid_steps": 100, "grid_links": 9800,
+            "sharded_n": 165, "sharded_ranks": 2, "sharded_batch": 4, "sharded_window": 16,
+            "sharded_steps": 200}
+GRID_SHAPE = (EXAMPLES["grid_batch"], 64, EXAMPLES["grid_links"])
+SHARDED_BLOCK = (EXAMPLES["sharded_batch"], EXAMPLES["sharded_window"],
+                 4 * EXAMPLES["sharded_n"] * (EXAMPLES["sharded_n"] - 1)
+                 // EXAMPLES["sharded_ranks"])
+DELFT_SHAPE = (1, 501, 818)  # delft_exp: full-horizon rings
 
 
 def dryrun_blocks() -> dict:
@@ -397,6 +441,13 @@ def phase_kernel(card: str, scn) -> dict:
              ("random", "float32", dry["replicas"], True),
              ("random", "float32", dry["link"], False),
              ("random", "float32", dry["hybrid"], False),
+             # the zoo pipeline's trainer and B=1 episodes; the examples'
+             # grid_50x50 batch, link-sharded grid block and delft
+             ("random", "float32", ZOO_TRAIN_SHAPE, True),
+             ("random", "float32", ZOO_VALIDATE_SHAPE, False),
+             ("random", "float32", GRID_SHAPE, False),
+             ("random", "float32", SHARDED_BLOCK, False),
+             ("random", "float32", DELFT_SHAPE, False),
              ("random", "float64", EXACT_SHAPE, False),  # the kernels line's float64 entry
              ("random", "float64", (3, 40, 70), False),
              # a step per replica; the kernels line's per-replica-t entries
@@ -873,6 +924,18 @@ def phase_sac_train(card: str, env) -> int:
 
 def phase_zoo(card: str) -> None:
     """Every shipped checkpoint on the card against the port on the CPU."""
+    dirs = sorted(d for d in (ROOT / "artifacts" / "zoo").iterdir() if "_agents_" in d.name)
+    if len(dirs) != 19:
+        raise AssertionError(f"expected 19 zoo checkpoints, found {len(dirs)}")
+    worst = max(checkpoint_card_vs_cpu(d) for d in dirs)
+    emit("zoo", checkpoints=len(dirs), rtol=ZOO_RTOL, max_abs_err=worst, card=card)
+
+
+def checkpoint_card_vs_cpu(d) -> float:
+    """Every agent of the checkpoint directory ``d`` loaded on the card and
+    on the CPU: the same deterministic actions on seeded observations
+    (normalized by its stats where present) within ``ZOO_RTOL``; returns
+    the largest difference."""
     import pickle
     from types import SimpleNamespace
 
@@ -880,44 +943,41 @@ def phase_zoo(card: str) -> None:
     from pednstream_tpu_torch.rl import PPOAgent, SACAgent
     from pednstream_tpu_torch.rl.rl_utils import RunningNormalizeWrapper
 
-    dirs = sorted(d for d in (ROOT / "artifacts" / "zoo").iterdir() if "_agents_" in d.name)
-    if len(dirs) != 19:
-        raise AssertionError(f"expected 19 zoo checkpoints, found {len(dirs)}")
+    d = Path(d)
     worst = 0.0
-    for d in dirs:
-        wrapper = None
-        if (d / "norm_stats.json").exists():
-            wrapper = RunningNormalizeWrapper(SimpleNamespace(obs_mode="option2"))
-            wrapper.load_stats(str(d / "norm_stats.json"))
-        for pkl in sorted(d.glob("*.pkl")):
-            aid = pkl.stem
-            cfg = pickle.load(open(pkl, "rb"))["config"]
-            A = cfg["act_dim"]
-            bounds = dict(action_low=np.zeros(A, np.float32),
-                          action_high=np.full(A, 4.0, np.float32))
-            agents = []
-            for device in ("cuda", "cpu"):
-                if cfg.get("algo") == "sac":
-                    a = SACAgent(cfg["obs_dim"], A, stack_size=cfg["stack_size"],
-                                 is_separator=aid.startswith("sep"), device=device, **bounds)
-                else:
-                    a = PPOAgent(cfg["obs_dim"], A, features_per_link=cfg["features_per_link"],
-                                 net_type=cfg["net_type"], hidden_dim=cfg["hidden_dim"],
-                                 device=device, **bounds)
-                a.load(str(pkl))
-                a.reset_hidden()
-                agents.append(a)
-            rng = np.random.default_rng(SEED)
-            for _ in range(3):
-                obs = rng.uniform(0.0, 4.0, cfg["obs_dim"]).astype(np.float32)
-                if wrapper is not None:
-                    obs = wrapper._norm_obs({aid: obs})[aid]
-                card_act, cpu_act = (a.absolute_action(obs, a.take_action(obs, explore=False))
-                                     for a in agents)
-                if not np.allclose(card_act, cpu_act, rtol=ZOO_RTOL, atol=1e-6):
-                    raise AssertionError(f"{d.name}/{aid}: card {card_act} vs cpu {cpu_act}")
-                worst = max(worst, float(np.abs(card_act - cpu_act).max()))
-    emit("zoo", checkpoints=len(dirs), rtol=ZOO_RTOL, max_abs_err=worst, card=card)
+    wrapper = None
+    if (d / "norm_stats.json").exists():
+        wrapper = RunningNormalizeWrapper(SimpleNamespace(obs_mode="option2"))
+        wrapper.load_stats(str(d / "norm_stats.json"))
+    for pkl in sorted(d.glob("*.pkl")):
+        aid = pkl.stem
+        cfg = pickle.load(open(pkl, "rb"))["config"]
+        A = cfg["act_dim"]
+        bounds = dict(action_low=np.zeros(A, np.float32),
+                      action_high=np.full(A, 4.0, np.float32))
+        agents = []
+        for device in ("cuda", "cpu"):
+            if cfg.get("algo") == "sac":
+                a = SACAgent(cfg["obs_dim"], A, stack_size=cfg["stack_size"],
+                             is_separator=aid.startswith("sep"), device=device, **bounds)
+            else:
+                a = PPOAgent(cfg["obs_dim"], A, features_per_link=cfg["features_per_link"],
+                             net_type=cfg["net_type"], hidden_dim=cfg["hidden_dim"],
+                             device=device, **bounds)
+            a.load(str(pkl))
+            a.reset_hidden()
+            agents.append(a)
+        rng = np.random.default_rng(SEED)
+        for _ in range(3):
+            obs = rng.uniform(0.0, 4.0, cfg["obs_dim"]).astype(np.float32)
+            if wrapper is not None:
+                obs = wrapper._norm_obs({aid: obs})[aid]
+            card_act, cpu_act = (a.absolute_action(obs, a.take_action(obs, explore=False))
+                                 for a in agents)
+            if not np.allclose(card_act, cpu_act, rtol=ZOO_RTOL, atol=1e-6):
+                raise AssertionError(f"{d.name}/{aid}: card {card_act} vs cpu {cpu_act}")
+            worst = max(worst, float(np.abs(card_act - cpu_act).max()))
+    return worst
 
 
 def check_launches(key: str, n: int, what: str) -> None:
@@ -1838,6 +1898,212 @@ def phase_parallel(card: str, scn) -> dict:
     return launches
 
 
+def artifacts_listing() -> dict:
+    """``{path: (size, mtime ns)}`` of every file under ``artifacts/``."""
+    return {str(p.relative_to(ROOT)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted((ROOT / "artifacts").rglob("*")) if p.is_file()}
+
+
+class EngineSteps:
+    """Counts the engine steps the env core takes while it is entered (the
+    number the kernel's launches are held to on env-driven paths)."""
+
+    def __enter__(self):
+        import pednstream_tpu_torch.env.core as core
+
+        self.core, self.inner, self.n = core, core.step_fn, 0
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self.inner(*args, **kwargs)
+
+        core.step_fn = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.core.step_fn = self.inner
+
+
+def phase_zoo_cli(card: str) -> int:
+    """The zoo pipeline's functions on the card into a temporary ``--out``;
+    returns the float32 launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import pednstream_tpu_torch.scripts.train_zoo as tz
+    from pednstream_tpu_torch.ops import fused_history_reads
+
+    c = ZOO_CLI
+    ds, gap = c["dataset"], c["action_gap"]
+    before = artifacts_listing()
+    validation_s = [0.0]
+    originals = {n: getattr(tz, n) for n in ("_validate_ppo_dir", "_validate_sac_dir")}
+
+    def timed_validation(inner):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                validation_s[0] += time.perf_counter() - t0
+        return run
+
+    for name, fn in originals.items():
+        setattr(tz, name, timed_validation(fn))
+    try:
+        with tempfile.TemporaryDirectory(prefix="zoo_cli_") as out, EngineSteps() as steps:
+            reset_counts()
+            t0 = time.perf_counter()
+            tz.train_ppo(ds, gap, c["iterations"], seeds=c["seeds"], out=out, device="cuda")
+            ppo_s = time.perf_counter() - t0
+            mine = Path(out) / "zoo" / f"ppo_agents_{ds}"
+            candidate = Path(str(mine) + ".candidate")
+            exported = mine if mine.is_dir() else candidate
+            files = sorted(os.listdir(exported))
+            if files != sorted(os.listdir(ROOT / c["shipped"])):
+                raise AssertionError(f"exported {files}, shipped {os.listdir(ROOT / c['shipped'])}")
+            curve = json.loads((exported / "curve.json").read_text())
+            if len(curve) != c["iterations"]:
+                raise AssertionError(f"curve has {len(curve)} iterations")
+            act_err = checkpoint_card_vs_cpu(exported)
+            # the second run meets the no-regress gate of the first's (or the shipped) policy
+            shutil.rmtree(candidate, ignore_errors=True)
+            standing = tz.train_ppo(ds, gap, c["regate_iterations"], out=out, device="cuda")
+            if Path(standing) == mine and mine.is_dir() and not candidate.exists():
+                gate = "replaced"
+            elif candidate.is_dir() and Path(standing) != mine:
+                gate = "kept, candidate left"
+            else:
+                raise AssertionError(f"the gate left {standing} and no candidate")
+            t0 = time.perf_counter()
+            sac = tz.train_sac_batched(ds, gap, c["sac_iterations"], val_every=1, out=out,
+                                       device="cuda")
+            sac_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tz.evaluate_zoo(ds, gap, standing, sac, with_mpc=c["with_mpc"],
+                            num_runs=c["eval_runs"], out=out, device="cuda")
+            eval_s = time.perf_counter() - t0
+            got = json.loads((Path(out) / "eval" / ds / "results.json").read_text())
+            want = json.loads((ROOT / c["results"]).read_text())
+            if list(got) != list(want):
+                raise AssertionError(f"policies {list(got)}, shipped {list(want)}")
+            for algo, rows in got.items():
+                if len(rows) != c["eval_runs"] or any(
+                        sorted(r) != sorted(want[algo][0]) for r in rows):
+                    raise AssertionError(f"{algo}: rows or keys differ from the shipped table")
+            launches = fused_history_reads.launches["float32"]
+            check_launches("float32", steps.n, "zoo_cli")
+            rows = {a: [r["total_reward"] for r in v] for a, v in got.items()}
+    finally:
+        for name, fn in originals.items():
+            setattr(tz, name, fn)
+    after = artifacts_listing()
+    if after != before:
+        changed = sorted(k for k in before.keys() | after.keys() if before.get(k) != after.get(k))
+        raise AssertionError(f"artifacts/ changed: {changed[:10]}")
+    emit("zoo_cli", dataset=ds, iterations=c["iterations"], seeds=c["seeds"],
+         exported_files=files, card_vs_cpu_max_abs_err=act_err, rtol=ZOO_RTOL, gate=gate,
+         ppo_wall_ms_per_iteration=[1e3 * x["wall_s"] for x in curve], ppo_seconds=ppo_s,
+         sac_seconds=sac_s, validation_seconds=validation_s[0], evaluation_seconds=eval_s,
+         eval_total_reward=rows, engine_steps=steps.n, kernel_launches=launches,
+         artifacts_unchanged=len(after), card=card)
+    return launches
+
+
+def check_finite_nonnegative(states) -> None:
+    import torch
+
+    for name, x in vars(states).items():
+        if isinstance(x, torch.Tensor) and (not bool(torch.isfinite(x).all())
+                                            or bool((x < 0).any())):
+            raise AssertionError(f"state leaf {name} is not finite and non-negative")
+
+
+def phase_examples(card: str) -> dict:
+    """Each example's run at its shipped network and horizon on the card;
+    returns the float32 launches per example."""
+    import tempfile
+
+    from pednstream_tpu_torch.examples import (big_network, delft_exp, forky_queues,
+                                               grid_scale, link_sharded_scale, long_corridor,
+                                               melbourne, metered_corridor, nine_node, six_node,
+                                               spike)
+    from pednstream_tpu_torch.ops import fused_history_reads
+
+    x = EXAMPLES
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="examples_") as out:
+        cases = [
+            ("melbourne", lambda: melbourne.run("cuda", out=out)),
+            ("long_corridor", lambda: long_corridor.run("cuda", out=out)),
+            ("six_node", lambda: six_node.run("cuda")),
+            ("spike", lambda: spike.run("cuda")),
+            ("forky_queues", lambda: forky_queues.run("cuda")),
+            ("nine_node", lambda: nine_node.run("cuda", out=out)),
+            ("delft_exp", lambda: delft_exp.run("cuda")),
+            ("big_network", lambda: big_network.run(False, "cuda", out=out)),
+            ("grid_scale", lambda: grid_scale.run("cuda", x["grid_batch"], x["grid_steps"])),
+            ("metered_corridor", lambda: metered_corridor.run("cuda", out=out)),
+        ]
+        for name, run in cases:
+            reset_counts()
+            t0 = time.perf_counter()
+            with EngineSteps() as env_steps:
+                r = run()
+            seconds = time.perf_counter() - t0
+            # grid_scale runs a warm-up rollout before the timed one
+            engine_steps = r["steps"] * (2 if name == "grid_scale" else 1)
+            if name == "metered_corridor" and env_steps.n != engine_steps:
+                raise AssertionError(f"{name}: {env_steps.n} env steps, {engine_steps} counted")
+            check_launches("float32", engine_steps, name)
+            final = r["final"]
+            check_state(final)
+            mass_err = check_mass(final)
+            arrivals = float(final.virt_arr_cum.sum())
+            departures = float(final.virt_dep_cum.sum())
+            # on grid_50x50 the origins are corners, 25+ links from a destination
+            if not (arrivals > 0 or (name == "grid_scale" and departures > 0)):
+                raise AssertionError(f"{name}: no pedestrian arrived")
+            launches[name] = engine_steps
+            emit("example", name=name, links=r["scn"].n_links if "scn" in r else None,
+                 batch=r["batch"], steps=r["steps"], engine_steps=engine_steps,
+                 env_steps_per_s=r["steps"] * r["batch"] / r["seconds"],
+                 run_seconds=r["seconds"], seconds_with_saving=seconds,
+                 launches_per_step=fused_history_reads.launches["float32"] / engine_steps,
+                 max_mass_err=mass_err, arrivals=arrivals, departures=departures,
+                 rows=[list(row) for row in r.get("rows", [])], card=card)
+
+    # the link-sharded grid over ranks sharing this card
+    reset_counts()
+    t0 = time.perf_counter()
+    ranks = link_sharded_scale.run(n=x["sharded_n"], steps=x["sharded_steps"],
+                                   window=x["sharded_window"], batch=x["sharded_batch"],
+                                   ranks=x["sharded_ranks"], device="cuda")
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        if r["launches"] != {**dict.fromkeys(r["launches"], 0), "float32": x["sharded_steps"]}:
+            raise AssertionError(f"link_sharded_scale: a rank launched {r['launches']}")
+        if r["block"] != SHARDED_BLOCK:
+            raise AssertionError(f"link_sharded_scale: block {r['block']}, not {SHARDED_BLOCK}")
+    final = ranks[0]["final"]
+    check_finite_nonnegative(final)
+    mass_err = check_mass(final)
+    departures = float(final.virt_dep_cum.sum())
+    if not departures > 0:
+        raise AssertionError("link_sharded_scale: no pedestrian departed")
+    launches["link_sharded_scale"] = sum(r["launches"]["float32"] for r in ranks)
+    run_s = max(r["seconds"] for r in ranks)
+    emit("example", name="link_sharded_scale", links=ranks[0]["n_links"],
+         ranks=x["sharded_ranks"], block=ranks[0]["block"], batch=x["sharded_batch"],
+         steps=x["sharded_steps"], env_steps_per_s=x["sharded_steps"] * x["sharded_batch"] / run_s,
+         run_seconds=run_s, build_seconds=ranks[0]["build_s"], seconds_with_spawn=seconds,
+         launches_per_step=launches["link_sharded_scale"] / x["sharded_steps"] / len(ranks),
+         collectives=ranks[0]["collectives"], max_mass_err=mass_err,
+         arrivals=float(final.virt_arr_cum.sum()), departures=departures, card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1877,6 +2143,16 @@ def main() -> int:
         # phase 14 alone, for work on the multi-device layer; prints no result
         emit("parallel_only", launches=phase_parallel(card, scn), card=card)
         return 0
+    if sys.argv[1:] in (["zoo_cli"], ["examples"]):
+        # phase 15 or 16 alone, for work on the entry points; prints no result
+        phase = phase_zoo_cli if sys.argv[1] == "zoo_cli" else phase_examples
+        emit(sys.argv[1] + "_only", launches=phase(card), card=card)
+        return 0
+    if sys.argv[1:] == ["kernel"]:
+        # phase 3 alone, to time the kernel of one tree against another's
+        # in one call; prints no result
+        emit("kernel_only", record=phase_kernel(card, scn), card=card)
+        return 0
     record = phase_kernel(card, scn)
     # each path's launches of each form of the kernel, counted from 0
     t_main = time.perf_counter()
@@ -1904,6 +2180,13 @@ def main() -> int:
     for path, n in phase_parallel(card, scn).items():
         launches["float32"]["parallel_" + path] = n
     seconds["parallel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["float32"]["zoo_cli"] = phase_zoo_cli(card)
+    seconds["zoo_cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, n in phase_examples(card).items():
+        launches["float32"]["examples_" + name] = n
+    seconds["examples"] = time.perf_counter() - t0
     emit("seconds_per_path", **seconds, card=card)
 
     print(json.dumps({"kernels": [{

@@ -12,8 +12,14 @@
 //   coefs  = (F, F*m, F*q, F*(q*m))           all float32
 //   ci     = cum_in_ring [b, max(t - tau, 0) mod H, e]
 //   co     = cum_out_ring[b, max(t - tau_s, 0) mod H, e]
-//   diff   = ((t0 + t1) + t2) + t3,  tk = coefs[k] * inflow_ring[b, (base-k) mod H, e],
+//   diff   = t0 + t1 + t2 + t3,  tk = coefs[k] * inflow_ring[b, (base-k) mod H, e],
 //            base = t - 1 - tau, and tk = 0 where base - k < 0.
+//
+// The float instantiation adds the four terms in the order the JAX package's
+// float32 read does on the CPU (a sum over the ring's rows, which XLA splits
+// into windows of 32 rows: ascending slot order within a window, then the
+// window sums; ops/ncurve.py::_slot_order_sum); the double one in the
+// reference's lag order ((t0 + t1) + t2) + t3, which the golden fixtures hold.
 //
 // t is the step being executed: one int for a lockstep batch, or one int
 // per replica (t_vec, [B]) where the replicas sit at different times, as
@@ -81,8 +87,19 @@ struct HistoryArgs {
     float unit_time;
 };
 
+// rows per window of XLA's CPU tree reduction (ops/ncurve.py SLOT_WINDOW)
+constexpr int kSlotWindow = 32;
+
+// v[k] for a k known only at run time, as selects: indexing the array with
+// it would put the array in local memory
+template <typename T>
+__device__ __forceinline__ T pick4(const T (&v)[4], int k) {
+    return k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : v[3];
+}
+
 template <typename T>
 __global__ void history_reads_kernel(const HistoryArgs<T> a) {
+    constexpr bool kLagOrder = sizeof(T) == sizeof(double);
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= a.E) return;
     const int b = blockIdx.y;
@@ -117,13 +134,40 @@ __global__ void history_reads_kernel(const HistoryArgs<T> a) {
     // the four lags are the rows base, base-1, base-2, base-3: step the
     // slot down with a wrap; a lag before time 0 adds nothing
     const T* in_col = a.inflow_ring + col;
-    T acc = T(0);
+    T term[4];
     int slot = base_slot;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        const T term = base - k >= 0 ? mul_rn(T(coef[k]), __ldg(in_col + slot * E)) : T(0);
-        acc = k == 0 ? term : add_rn(acc, term);
+        term[k] = base - k >= 0 ? mul_rn(T(coef[k]), __ldg(in_col + slot * E)) : T(0);
         slot = slot == 0 ? H - 1 : slot - 1;
+    }
+    T acc;
+    if (kLagOrder) {
+        acc = add_rn(add_rn(add_rn(term[0], term[1]), term[2]), term[3]);
+    } else {
+        // ascending slots hold lags 3, 2, 1, 0, rotated where they wrap past
+        // row 0; a window boundary after the first or second of them splits
+        // the sum in two runs (after the third it is the plain sum again)
+        const int rot = base_slot >= 3 ? 0 : 3 - base_slot;
+        const int pad_low = (kSlotWindow - H % kSlotWindow) % kSlotWindow / 2;
+        T s[4];
+        int run = 4, w0 = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int k = 3 - ((j + rot) & 3);  // the lag in the j-th slot, ascending
+            s[j] = pick4(term, k);
+            const int slot_j = base_slot - k < 0 ? base_slot - k + H : base_slot - k;
+            const int w = H > kSlotWindow ? (slot_j + pad_low) / kSlotWindow : 0;
+            if (j == 0) w0 = w;
+            else if (w != w0 && run == 4) run = j;
+        }
+        if (run == 1) {
+            acc = add_rn(s[0], add_rn(add_rn(s[1], s[2]), s[3]));
+        } else if (run == 2) {
+            acc = add_rn(add_rn(s[0], s[1]), add_rn(s[2], s[3]));
+        } else {
+            acc = add_rn(add_rn(add_rn(s[0], s[1]), s[2]), s[3]);
+        }
     }
 
     const long long plane = (long long)a.B * E;

@@ -32,6 +32,8 @@ _ENTRY = {torch.float32: "ncurve_history_reads", torch.float64: "ncurve_history_
 PER_REPLICA_T = "_per_replica_t"
 # guards the launch counts: simulations step from several threads at once
 _COUNT_LOCK = threading.Lock()
+# rows per window of XLA's CPU tree reduction (float32 diffusion sum order)
+SLOT_WINDOW = 32
 
 
 def lookback(avg_tt, gamma, tau_shockwave, t, H: int, unit_time: float, windowed: bool):
@@ -68,6 +70,36 @@ def lookback(avg_tt, gamma, tau_shockwave, t, H: int, unit_time: float, windowed
     return tau, coefs, idx_ci, base, idx_co
 
 
+def _slot_order_sum(terms, base, H: int):
+    """The four diffusion terms summed as the JAX package's float32 read
+    sums them: ``(inflow_ring * coef).sum(axis=0)`` over the ring's rows
+    (``pednstream_tpu/ops/ncurve.py:34-56`` and the Pallas body :129-150),
+    which XLA's CPU backend splits into windows of ``SLOT_WINDOW`` rows
+    (the reduced axis padded to a whole number of windows, the lower half
+    of the padding in front) and then sums the windows' partial sums.
+
+    The terms' slots ``(base - k) mod H`` are consecutive, so in ascending
+    slot order they are lags 3, 2, 1, 0 rotated where the slots wrap past
+    row 0; a window boundary splits them into at most two runs, each
+    summed left to right, then the two run sums added.  A split after the
+    third term gives the plain left-to-right sum again.  Zero terms (lags
+    before time 0) add nothing wherever they fall."""
+    base_slot = torch.where(base >= 0, torch.remainder(base, H), 0)
+    rot = torch.clamp(3 - base_slot, min=0).unsqueeze(1)  # 0 unless the slots wrap
+    j = torch.arange(4, device=base.device).view(1, 4, 1)
+    lag = 3 - (j + rot) % 4  # [B, 4, E]: the lag of the j-th slot in ascending order
+    s0, s1, s2, s3 = torch.stack(terms, dim=1).gather(1, lag).unbind(1)
+    left = ((s0 + s1) + s2) + s3
+    if H <= SLOT_WINDOW:
+        return left
+    pad_low = (-H % SLOT_WINDOW) // 2
+    window = torch.div(torch.remainder(base_slot.unsqueeze(1) - lag, H) + pad_low,
+                       SLOT_WINDOW, rounding_mode="floor")
+    run = (window == window[:, :1]).sum(1)  # length of the first run
+    return torch.where(run == 1, s0 + ((s1 + s2) + s3),
+                       torch.where(run == 2, (s0 + s1) + (s2 + s3), left))
+
+
 def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
                             idx_ci, idx_co, base, coefs, H: int):
     """The three reads alone, on any device.
@@ -75,10 +107,12 @@ def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
     Rings ``[B, H, E]``; ``idx_ci``, ``idx_co``, ``base`` ``[B, E]`` int;
     ``coefs`` ``[B, 4, E]``.  Returns ``(ci, co, diff)``, each ``[B, E]``:
     ``ci = cum_in_ring[idx_ci mod H]`` and ``co = cum_out_ring[idx_co mod H]``
-    (0 where the index is negative), and
-    ``diff = ((t0 + t1) + t2) + t3`` with
-    ``tk = coefs[k] * inflow_ring[(base - k) mod H]`` (0 where base - k < 0);
-    float32 coefs times float64 rings widen the coef first.
+    (0 where the index is negative), and ``diff`` the sum of
+    ``tk = coefs[k] * inflow_ring[(base - k) mod H]`` (0 where base - k < 0).
+    Float32 rings (the fast path) sum the four terms in the JAX package's
+    slot order (:func:`_slot_order_sum`); float64 rings (the exact-parity
+    path) in the reference's lag order ``((t0 + t1) + t2) + t3``
+    (``pednstream_tpu/engine.py:304-314``), the float32 coef widened first.
     """
     def read(ring, idx):
         slot = torch.remainder(idx, H).to(torch.int64)
@@ -87,11 +121,12 @@ def fused_history_reads_ref(cum_in_ring, cum_out_ring, inflow_ring,
 
     ci = read(cum_in_ring, idx_ci)
     co = read(cum_out_ring, idx_co)
-    diff = None
-    for k in range(4):
-        lag = base - k
-        term = torch.where(lag >= 0, coefs[:, k] * read(inflow_ring, lag), 0.0)
-        diff = term if diff is None else diff + term
+    terms = [torch.where(base - k >= 0, coefs[:, k] * read(inflow_ring, base - k), 0.0)
+             for k in range(4)]
+    if inflow_ring.dtype == torch.float64:
+        diff = ((terms[0] + terms[1]) + terms[2]) + terms[3]
+    else:
+        diff = _slot_order_sum(terms, base, H)
     return ci, co, diff
 
 

@@ -84,7 +84,12 @@ def assert_kernel_is_plain(ops, dtype=torch.float32):
                                    (256, 701, 168), (256, 64, 168), (64, 64, 168),
                                    (1, 501, 938),
                                    # the link-sharded and hybrid blocks of melbourne
-                                   (1024, 16, 469), (512, 16, 469)])
+                                   (1024, 16, 469), (512, 16, 469),
+                                   # the zoo pipeline's trainer and B=1 episodes on
+                                   # butterfly_scC; grid_50x50; the link-sharded
+                                   # grid's block; delft
+                                   (256, 64, 20), (1, 64, 20), (16, 64, 9800),
+                                   (4, 16, 54120), (1, 501, 818)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
     assert_kernel_is_plain(make_operands(B, H, E, seed=B + H + E, device=cuda))
 
@@ -479,3 +484,54 @@ def test_link_sharded_rollout_on_cuda(cuda):
                 assert torch.equal(x.cpu(), got), leaf
             else:
                 assert x == got
+
+
+def test_train_zoo_export_round_trip_on_cuda(cuda, tmp_path):
+    """The zoo pipeline's PPO export from a trainer on the card: the
+    checkpoint loads back on the card and on the CPU and both act alike
+    (rtol 1e-5); the trainer's own policy gives the same actions."""
+    import pickle
+
+    from pednstream_tpu_torch.rl.batched_ppo import BatchedPPOTrainer
+    from pednstream_tpu_torch.rl.rl_utils import load_all_agents
+    from pednstream_tpu_torch.rl.train import build_agents
+    from pednstream_tpu_torch.scripts import train_zoo
+
+    env = PedNetParallelEnv("butterfly_scC", obs_mode="option2", seed=0, action_gap=15,
+                            history_window=64, device="cuda")
+    tr = BatchedPPOTrainer(env.core, num_envs=16, rollout_len=2, net_type="attention",
+                           gate_anchor="open", max_delta=4.0, randomize=True)
+    ts, _ = tr.train_iteration(tr.init(0))
+    out = tmp_path / "ppo"
+    train_zoo._export_ppo(str(out), tr, ts, env, "attention", 1, "butterfly_scC", 16, 2, 15,
+                          0.0, [])
+    assert sorted(p.name for p in out.iterdir()) == ["config.json", "curve.json", "gate_2.pkl"]
+    saved = pickle.load(open(out / "gate_2.pkl", "rb"))
+    assert isinstance(saved["actor"]["params"]["Dense_0"]["kernel"], np.ndarray)
+    rng = np.random.default_rng(0)
+    obs = rng.uniform(0, 4, env.observation_space("gate_2").shape).astype(np.float32)
+    acts = []
+    for device in ("cuda", "cpu"):
+        agents = load_all_agents(build_agents(env, algo="ppo", device=device), str(out))
+        a = agents["gate_2"]
+        a.reset_hidden()
+        acts.append(a.absolute_action(obs, a.take_action(obs, explore=False)))
+    np.testing.assert_allclose(acts[0], acts[1], rtol=1e-5, atol=1e-6)
+
+
+def test_grid_scale_on_cuda(cuda):
+    """grid_50x50 (9,800 links) at 16 replicas for a few steps through the
+    example's run: one float32 launch per engine step (warm-up and timed
+    rollouts), state finite and non-negative, mass conserved."""
+    from pednstream_tpu_torch.examples import grid_scale
+
+    before = dict(fused_history_reads.launches)
+    r = grid_scale.run("cuda", batch=16, steps=5)
+    assert r["scn"].n_links == 9800 and r["final"].cum_in.shape == (16, 9800)
+    assert fused_history_reads.launches == {**before, "float32": before["float32"] + 10}
+    st = r["final"]
+    for name, x in vars(st).items():
+        if isinstance(x, torch.Tensor):
+            assert x.is_cuda and bool(torch.isfinite(x).all()) and not bool((x < 0).any()), name
+    err = (st.cum_in - st.cum_out - st.num_peds).abs().max().item()
+    assert err <= 5 * 1.5 * 2.0 ** -23 * max(st.cum_in.abs().max().item(), 1.0)

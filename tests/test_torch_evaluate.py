@@ -189,14 +189,16 @@ def deterministic(env_cls, **fixed):
 def test_zoo_ppo_checkpoint_evaluates_as_in_jax(tmp_path, monkeypatch):
     """The shipped butterfly_scC PPO checkpoint through both packages'
     ``evaluate_agents`` on the nominal network with deterministic engine
-    steps: the same total reward and metrics within rtol 1e-3.  Over a
-    whole episode the two engines part by single pedestrians in congested
-    spells and rejoin (the diffusion term's four products are summed in
-    slot order by the Pallas kernel and in lag order here, rtol 1e-6, and
-    its ``ceil`` flips at whole numbers): 1.3e-4 of the total reward with
-    no control at all, 2.3e-4 under this policy.  The offline metrics are
-    differences of large sums (the delay is 0.8% apart) and are held to
-    2e-2."""
+    steps: the same total reward within rtol 3e-4 and metrics within
+    1.5e-2.  The diffusion term's four products are summed in the JAX
+    read's slot order (bitwise, test_torch_ops.py), but the two engines
+    still part by single pedestrians in congested spells and rejoin: the
+    JAX step is compiled by XLA, which divides by a constant as a multiply
+    by its reciprocal (``run_sum / W``, ``avg_tt / unit_time``), so
+    ``avg_tt`` differs by an ulp from the first action on and a rounded
+    lag or ``ceil`` flips now and then (ROADMAP.md §3).  Measured: 2.1e-4
+    of the total reward under this policy; the offline metrics are
+    differences of large sums (the delay 0.8-0.9 % apart)."""
     ckpt = {"ppo": str(ZOO / "ppo_agents_butterfly_scC")}
     monkeypatch.setattr(port_env_pkg, "PedNetParallelEnv",
                         deterministic(port_env_pkg.PedNetParallelEnv))
@@ -210,7 +212,7 @@ def test_zoo_ppo_checkpoint_evaluates_as_in_jax(tmp_path, monkeypatch):
     assert want["total_reward"] < 0
     for key, value in want.items():
         if isinstance(value, (int, float)) and key != "run":
-            rtol = 1e-3 if key == "total_reward" else 2e-2
+            rtol = 3e-4 if key == "total_reward" else 1.5e-2
             np.testing.assert_allclose(got[key], value, rtol=rtol, atol=1e-9, err_msg=key)
 
 

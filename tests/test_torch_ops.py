@@ -54,9 +54,10 @@ def make_inputs(B=3, H=40, E=70, seed=0, ring_dtype=np.float32):
 
 
 def test_ref_matches_jax_pallas_interpret():
-    """ci and co are plain reads: exact.  diff sums the same four products
-    in another order (the Pallas kernel adds masked ring rows in slot
-    order), so it matches to rtol 1e-6, a few float32 ulps."""
+    """ci and co are plain reads, and diff sums the four products in the
+    order the Pallas kernel's row reduction takes on the CPU (slot order
+    in windows of 32 rows, ``_slot_order_sum``): all three bit for bit,
+    at H=40 (two windows) with tile 32 and E=70 (not a multiple of it)."""
     arrs = make_inputs()
     H = arrs[0].shape[1]
     ci, co, diff = fused_history_reads_ref(*map(torch.from_numpy, arrs), H)
@@ -64,28 +65,66 @@ def test_ref_matches_jax_pallas_interpret():
         want = jax_fused(*(jnp.asarray(a[b]) for a in arrs), H, tile=32, interpret=True)
         np.testing.assert_array_equal(ci[b].numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(co[b].numpy(), np.asarray(want[1]))
-        np.testing.assert_allclose(diff[b].numpy(), np.asarray(want[2]), rtol=1e-6, atol=0)
+        np.testing.assert_array_equal(diff[b].numpy(), np.asarray(want[2]))
+
+
+def slot_order_sum(coefs, in_ring, base, H, window=32):
+    """The float32 diffusion sum of one (replica, link) as the JAX
+    package's row reduction takes it on the CPU, written out term by term:
+    the rows split into windows of 32 (the padding to whole windows half in
+    front), each window's terms added in ascending slot order, then the
+    window sums added."""
+    pad_low = (-H % window) // 2 if H > window else 0
+    runs = {}
+    for k in range(4):
+        if base - k >= 0:
+            slot = (base - k) % H
+            w = (slot + pad_low) // window if H > window else 0
+            runs.setdefault(w, []).append((slot, np.float32(coefs[k] * in_ring[slot])))
+    acc = np.float32(0)
+    for w in sorted(runs):
+        part = None
+        for _, term in sorted(runs[w]):
+            part = term if part is None else np.float32(part + term)
+        acc = np.float32(acc + part)
+    return acc
 
 
 def test_ref_sum_order_is_the_kernels():
-    """diff is ((t0 + t1) + t2) + t3 of float32 products, each term 0
-    where base - k < 0: the order csrc/ncurve.cu uses, so equality is
-    exact."""
-    arrs = make_inputs(B=2, H=16, E=33, seed=1)
-    ci_ring, co_ring, in_ring, idx_ci, idx_co, base, coefs = arrs
-    H = ci_ring.shape[1]
-    _, _, diff = fused_history_reads_ref(*map(torch.from_numpy, arrs), H)
-    want = np.zeros(base.shape, np.float32)
-    for b in range(base.shape[0]):
-        for e in range(base.shape[1]):
-            acc = None
-            for k in range(4):
-                s = int(base[b, e]) - k
-                term = (np.float32(coefs[b, k, e]) * in_ring[b, s % H, e]
-                        if s >= 0 else np.float32(0))
-                acc = term if acc is None else np.float32(acc + term)
-            want[b, e] = acc
-    np.testing.assert_array_equal(diff.numpy(), want)
+    """diff of float32 rings is the sum written out term by term in
+    ``slot_order_sum`` (each term 0 where base - k < 0): the order
+    csrc/ncurve.cu uses, so equality is exact; at H = 16 (one window) and
+    70 (three, padding in front), every base slot, wrap included."""
+    for H in (16, 70):
+        arrs = make_inputs(B=2, H=H, E=H + 4, seed=1)
+        ci_ring, co_ring, in_ring, idx_ci, idx_co, base, coefs = arrs
+        base[0] = np.arange(-4, H)  # lags before time 0, then every slot
+        base[1] = 3 * H + np.arange(H + 4)  # every slot again, well past the wrap
+        _, _, diff = fused_history_reads_ref(*map(torch.from_numpy, arrs), H)
+        want = np.array([[slot_order_sum(coefs[b, :, e], in_ring[b, :, e], int(base[b, e]), H)
+                          for e in range(base.shape[1])] for b in range(base.shape[0])])
+        np.testing.assert_array_equal(diff.numpy(), want)
+
+
+@pytest.mark.parametrize("H", [16, 64, 701])
+def test_ref_sum_matches_diffusion_single_pass(float32_jax, H):
+    """The float32 diffusion sum against ``diffusion_single_pass`` (the JAX
+    deterministic fast path) bit for bit, at every ``base mod H`` (wrap
+    included) and at bases below 3 (lags before time 0): terms whose sum
+    depends on the order (magnitudes 1e-5 to 1e5)."""
+    from pednstream_tpu.ops import diffusion_single_pass
+    rng = np.random.default_rng(H)
+    E = 2 * H + 8
+    in_ring = (rng.random((H, E)) * 10.0 ** rng.integers(-3, 4, (H, E))).astype(np.float32)
+    coefs = (rng.random((4, E)) * 10.0 ** rng.integers(-2, 2, (4, E))).astype(np.float32)
+    base = np.concatenate([np.arange(H), 7 * H + np.arange(H), np.arange(-4, 4)]).astype(np.int32)
+    want = np.asarray(jax.jit(diffusion_single_pass, static_argnums=3)(
+        in_ring, base, coefs, H))
+    zeros = np.zeros((1, E), np.int32)
+    _, _, diff = fused_history_reads_ref(
+        *(torch.from_numpy(in_ring[None]) for _ in range(3)), torch.from_numpy(zeros),
+        torch.from_numpy(zeros), torch.from_numpy(base[None]), torch.from_numpy(coefs[None]), H)
+    np.testing.assert_array_equal(diff[0].numpy(), want)
 
 
 def test_ref_float64_matches_jax_exact_diffusion(x64_on):
@@ -174,12 +213,12 @@ def jax_history(rings, avg_tt, gamma, tau_sw, b, t, H, T):
 
 
 def assert_matches_jax(got, tau, want):
-    """ci, co and tau exact; diff to rtol 1e-6 (the Pallas kernel sums the
-    four terms in slot order, the port in lag order)."""
+    """ci, co, tau and diff exact (both sum the four terms in the Pallas
+    kernel's slot order)."""
     np.testing.assert_array_equal(tau.numpy(), np.asarray(want["tau"]))
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want["ci"]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want["co"]))
-    np.testing.assert_allclose(got[2].numpy(), np.asarray(want["diff"]), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want["diff"]))
 
 
 @pytest.mark.parametrize("windowed", [True, False])
@@ -271,10 +310,10 @@ def test_plain_float64_matches_jax_exact_path(x64_on):
 
 
 def test_plain_sum_order_is_the_kernels():
-    """The plain version's diff is ((t0 + t1) + t2) + t3 of float32
-    products of the port's coefficients (F, F m, F (m m), F ((m m) m)),
-    each term 0 where base - k < 0: the arithmetic csrc/ncurve.cu does,
-    step for step, so equality is exact."""
+    """The plain version's diff is the window-and-slot-order sum
+    (``slot_order_sum``) of float32 products of the port's coefficients
+    (F, F m, F (m m), F ((m m) m)), each term 0 where base - k < 0: the
+    arithmetic csrc/ncurve.cu does, step for step, so equality is exact."""
     H = 16
     rings, avg_tt, gamma, tau_sw = make_operands(B=2, H=H, E=33, seed=1)
     t = 12
@@ -289,12 +328,7 @@ def test_plain_sum_order_is_the_kernels():
             m = f32(1) - F
             q = m * m
             coefs = (F, F * m, F * q, F * (q * m))
-            acc = None
-            for k in range(4):
-                s = t - 1 - tau - k
-                term = coefs[k] * rings[2][b, s % H, e] if s >= 0 else f32(0)
-                acc = term if acc is None else f32(acc + term)
-            want[b, e] = acc
+            want[b, e] = slot_order_sum(coefs, rings[2][b, :, e], t - 1 - tau, H)
     np.testing.assert_array_equal(diff.numpy(), want)
 
 
