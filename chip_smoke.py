@@ -5,8 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py kernel``, ``parallel``, ``zoo_cli`` or ``examples``
-runs phase 3, 14, 15 or 16 alone and prints no result line.)
+(``python3 chip_smoke.py kernel``, ``parallel``, ``zoo_cli``, ``examples``,
+``sweeps``, ``window`` or ``scripts`` runs phase 3, 14, 15, 16, 17, 18 or 19
+alone and prints no result line.)
 
 Phases, each printing one JSON line (a failing phase raises, and the script
 exits non-zero):
@@ -150,7 +151,28 @@ exits non-zero):
    mass conserved, state finite and non-negative, arrivals (departures on
    the grids, whose origins lie farther from a destination than the
    horizon walks).
+17. sweeps: ``pednstream_tpu_torch.scripts.sweep_melbourne`` and
+   ``sweep_grid`` at every shipped row (melbourne H = 32 x B = 896, 1024,
+   1280 and H = 16 x B = 1024, 1280, 1536; grid_50x50's 9,800 links at H =
+   64 and 32 x B = 128, 256, 512), each row one warm and one timed run of
+   50 stochastic steps (the scripts' 500 and best of 3 cut for time): no
+   ``FAILED`` row, one float32 launch per engine step, every run's final
+   state finite, non-negative and mass-conserving; prints the rows.
+18. window: ``quantify_window`` at full horizon (melbourne and grid_50x50,
+   nominal and 8x demand, the full ring against H = 64, 32 and 16): its
+   table, one float32 launch per engine step, every final state checked as
+   the main path's, and whether melbourne stays identical to the exact
+   ring.
+19. scripts: ``reset_determinism_report``'s report on butterfly_scC
+   (``deterministic: true``), ``retrain_r3 --phase eval`` on long_corridor
+   at one run, ``ablate_global_reward`` on metered_corridor at one
+   iteration with coefs 0.0 and 0.1 and one run, the dashboard's ``--html``
+   on a run the examples phase saved, and ``entry()``'s step: one float32
+   launch per engine step, the last state of each checked as the main
+   path's, no ``FAILED`` line, ``artifacts/`` unchanged.
 
+Phase 3 also holds the kernel at phases 17 and 18's new shapes: (1536, 16,
+938), (1280, 32, 938), (512, 64, 9800), (512, 32, 9800) and (1, 501, 9800).
 It then prints the kernels' record, the card's ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -158,6 +180,7 @@ the last line, ``{"ok": true, "device": {...}}``.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -219,6 +242,19 @@ SHARDED_BLOCK = (EXAMPLES["sharded_batch"], EXAMPLES["sharded_window"],
                  4 * EXAMPLES["sharded_n"] * (EXAMPLES["sharded_n"] - 1)
                  // EXAMPLES["sharded_ranks"])
 DELFT_SHAPE = (1, 501, 818)  # delft_exp: full-horizon rings
+# the throughput sweeps (pednstream_tpu_torch.scripts.sweep_melbourne and
+# sweep_grid) at every shipped (H, B) row, the depth cut to 50 steps and one
+# timed run after the warm one (the scripts run 500 steps, best of 3)
+SWEEPS = {"steps": 50, "reps": 1}
+SWEEP_SHAPES = [(1536, 16, 938), (1280, 32, 938), (512, 64, 9800), (512, 32, 9800)]
+# quantify_window's full-horizon ring on grid_50x50 (H = T + 1)
+WINDOW_SHAPE = (1, 501, 9800)
+# the other drivers: the reset-determinism report, retrain_r3's eval phase
+# (long_corridor: separator-only, so evaluate_zoo runs no MPC there), the
+# ablation at one iteration, the dashboard's HTML export, entry()
+SCRIPTS = {"reset_dataset": "butterfly_scC", "eval_dataset": "long_corridor", "eval_runs": 1,
+           "ablate_dataset": "metered_corridor", "ablate_coefs": ("0.0", "0.1"),
+           "ablate_iters": 1, "ablate_runs": 1}
 
 
 def dryrun_blocks() -> dict:
@@ -448,6 +484,9 @@ def phase_kernel(card: str, scn) -> dict:
              ("random", "float32", GRID_SHAPE, False),
              ("random", "float32", SHARDED_BLOCK, False),
              ("random", "float32", DELFT_SHAPE, False),
+             # the sweeps' largest rows and quantify_window's full ring
+             *[("random", "float32", shape, False) for shape in SWEEP_SHAPES],
+             ("random", "float32", WINDOW_SHAPE, False),
              ("random", "float64", EXACT_SHAPE, False),  # the kernels line's float64 entry
              ("random", "float64", (3, 40, 70), False),
              # a step per replica; the kernels line's per-replica-t entries
@@ -2020,11 +2059,10 @@ def check_finite_nonnegative(states) -> None:
             raise AssertionError(f"state leaf {name} is not finite and non-negative")
 
 
-def phase_examples(card: str) -> dict:
-    """Each example's run at its shipped network and horizon on the card;
-    returns the float32 launches per example."""
-    import tempfile
-
+def phase_examples(card: str, out: str) -> dict:
+    """Each example's run at its shipped network and horizon on the card,
+    its saved runs under ``out``; returns the float32 launches per
+    example."""
     from pednstream_tpu_torch.examples import (big_network, delft_exp, forky_queues,
                                                grid_scale, link_sharded_scale, long_corridor,
                                                melbourne, metered_corridor, nine_node, six_node,
@@ -2033,46 +2071,45 @@ def phase_examples(card: str) -> dict:
 
     x = EXAMPLES
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="examples_") as out:
-        cases = [
-            ("melbourne", lambda: melbourne.run("cuda", out=out)),
-            ("long_corridor", lambda: long_corridor.run("cuda", out=out)),
-            ("six_node", lambda: six_node.run("cuda")),
-            ("spike", lambda: spike.run("cuda")),
-            ("forky_queues", lambda: forky_queues.run("cuda")),
-            ("nine_node", lambda: nine_node.run("cuda", out=out)),
-            ("delft_exp", lambda: delft_exp.run("cuda")),
-            ("big_network", lambda: big_network.run(False, "cuda", out=out)),
-            ("grid_scale", lambda: grid_scale.run("cuda", x["grid_batch"], x["grid_steps"])),
-            ("metered_corridor", lambda: metered_corridor.run("cuda", out=out)),
-        ]
-        for name, run in cases:
-            reset_counts()
-            t0 = time.perf_counter()
-            with EngineSteps() as env_steps:
-                r = run()
-            seconds = time.perf_counter() - t0
-            # grid_scale runs a warm-up rollout before the timed one
-            engine_steps = r["steps"] * (2 if name == "grid_scale" else 1)
-            if name == "metered_corridor" and env_steps.n != engine_steps:
-                raise AssertionError(f"{name}: {env_steps.n} env steps, {engine_steps} counted")
-            check_launches("float32", engine_steps, name)
-            final = r["final"]
-            check_state(final)
-            mass_err = check_mass(final)
-            arrivals = float(final.virt_arr_cum.sum())
-            departures = float(final.virt_dep_cum.sum())
-            # on grid_50x50 the origins are corners, 25+ links from a destination
-            if not (arrivals > 0 or (name == "grid_scale" and departures > 0)):
-                raise AssertionError(f"{name}: no pedestrian arrived")
-            launches[name] = engine_steps
-            emit("example", name=name, links=r["scn"].n_links if "scn" in r else None,
-                 batch=r["batch"], steps=r["steps"], engine_steps=engine_steps,
-                 env_steps_per_s=r["steps"] * r["batch"] / r["seconds"],
-                 run_seconds=r["seconds"], seconds_with_saving=seconds,
-                 launches_per_step=fused_history_reads.launches["float32"] / engine_steps,
-                 max_mass_err=mass_err, arrivals=arrivals, departures=departures,
-                 rows=[list(row) for row in r.get("rows", [])], card=card)
+    cases = [
+        ("melbourne", lambda: melbourne.run("cuda", out=out)),
+        ("long_corridor", lambda: long_corridor.run("cuda", out=out)),
+        ("six_node", lambda: six_node.run("cuda")),
+        ("spike", lambda: spike.run("cuda")),
+        ("forky_queues", lambda: forky_queues.run("cuda")),
+        ("nine_node", lambda: nine_node.run("cuda", out=out)),
+        ("delft_exp", lambda: delft_exp.run("cuda")),
+        ("big_network", lambda: big_network.run(False, "cuda", out=out)),
+        ("grid_scale", lambda: grid_scale.run("cuda", x["grid_batch"], x["grid_steps"])),
+        ("metered_corridor", lambda: metered_corridor.run("cuda", out=out)),
+    ]
+    for name, run in cases:
+        reset_counts()
+        t0 = time.perf_counter()
+        with EngineSteps() as env_steps:
+            r = run()
+        seconds = time.perf_counter() - t0
+        # grid_scale runs a warm-up rollout before the timed one
+        engine_steps = r["steps"] * (2 if name == "grid_scale" else 1)
+        if name == "metered_corridor" and env_steps.n != engine_steps:
+            raise AssertionError(f"{name}: {env_steps.n} env steps, {engine_steps} counted")
+        check_launches("float32", engine_steps, name)
+        final = r["final"]
+        check_state(final)
+        mass_err = check_mass(final)
+        arrivals = float(final.virt_arr_cum.sum())
+        departures = float(final.virt_dep_cum.sum())
+        # on grid_50x50 the origins are corners, 25+ links from a destination
+        if not (arrivals > 0 or (name == "grid_scale" and departures > 0)):
+            raise AssertionError(f"{name}: no pedestrian arrived")
+        launches[name] = engine_steps
+        emit("example", name=name, links=r["scn"].n_links if "scn" in r else None,
+             batch=r["batch"], steps=r["steps"], engine_steps=engine_steps,
+             env_steps_per_s=r["steps"] * r["batch"] / r["seconds"],
+             run_seconds=r["seconds"], seconds_with_saving=seconds,
+             launches_per_step=fused_history_reads.launches["float32"] / engine_steps,
+             max_mass_err=mass_err, arrivals=arrivals, departures=departures,
+             rows=[list(row) for row in r.get("rows", [])], card=card)
 
     # the link-sharded grid over ranks sharing this card
     reset_counts()
@@ -2101,6 +2138,201 @@ def phase_examples(card: str) -> dict:
          launches_per_step=launches["link_sharded_scale"] / x["sharded_steps"] / len(ranks),
          collectives=ranks[0]["collectives"], max_mass_err=mass_err,
          arrivals=float(final.virt_arr_cum.sum()), departures=departures, card=card)
+    return launches
+
+
+class CheckedSteps(EngineSteps):
+    """Counts the env core's engine steps, as :class:`EngineSteps`, and
+    holds the last state one returned to the checks of the main path
+    (finite, non-negative, mass conserved) when it is left."""
+
+    def __enter__(self):
+        super().__enter__()
+        counted, self.last = self.core.step_fn, None
+
+        def kept(*args, **kwargs):
+            out = counted(*args, **kwargs)
+            self.last = out[0]
+            return out
+
+        self.core.step_fn = kept
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        if exc[0] is None and self.last is not None:
+            check_finite_nonnegative(self.last)
+            self.mass_err = check_mass(self.last)
+
+
+def phase_sweeps(card: str) -> dict:
+    """Both throughput sweeps at every shipped row, the depth cut; returns
+    the float32 launches per sweep."""
+    import io
+    from contextlib import redirect_stdout
+
+    from pednstream_tpu_torch.ops import fused_history_reads
+    from pednstream_tpu_torch.scripts import sweep_grid, sweep_melbourne
+
+    launches = {}
+    for name, mod in (("sweep_melbourne", sweep_melbourne), ("sweep_grid", sweep_grid)):
+        mass = []
+
+        def check(final):
+            check_state(final)
+            mass.append(check_mass(final))
+
+        reset_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(printed):
+            rows = mod.main(["--steps", str(SWEEPS["steps"]), "--reps", str(SWEEPS["reps"]),
+                             "--device", "cuda"], check=check)
+        seconds = time.perf_counter() - t0
+        lines = printed.getvalue().splitlines()
+        print(printed.getvalue(), end="", flush=True)
+        failed = [ln for ln in lines if "FAILED" in ln]
+        if failed or len(rows) != 6 or len(lines) != 6:
+            raise AssertionError(f"{name}: {failed or lines}")
+        engine_steps = len(rows) * (1 + SWEEPS["reps"]) * SWEEPS["steps"]
+        check_launches("float32", engine_steps, name)
+        if len(mass) != len(rows) * (1 + SWEEPS["reps"]):
+            raise AssertionError(f"{name}: {len(mass)} runs checked")
+        launches[name] = engine_steps
+        emit("sweep", name=name, steps=SWEEPS["steps"], reps=SWEEPS["reps"],
+             rows=[{"H": H, "B": B, "env_steps_per_s": v, "ms_per_step": B / v * 1e3}
+                   for H, B, v in rows], engine_steps=engine_steps,
+             launches_per_step=fused_history_reads.launches["float32"] / engine_steps,
+             max_mass_err=max(mass), seconds=seconds, card=card)
+    return launches
+
+
+def phase_window(card: str) -> int:
+    """quantify_window at full horizon on the card; returns the float32
+    launches."""
+    import torch
+    from pednstream_tpu_torch.scripts import quantify_window as qw
+
+    real = qw.simulate
+    seen = {"steps": 0, "mass": 0.0, "shapes": set()}
+
+    def checked(scn, ep, state, steps, *args, **kwargs):
+        final, outs = real(scn, ep, state, steps, *args, **kwargs)
+        check_finite_nonnegative(final)
+        seen["mass"] = max(seen["mass"], check_mass(final))
+        seen["steps"] += steps
+        seen["shapes"].add((1, scn.H, scn.n_links))
+        if not bool(torch.isfinite(outs.density).all()) or bool((outs.num_peds < 0).any()):
+            raise AssertionError("quantify_window: a recorded density or count is bad")
+        return final, outs
+
+    reset_counts()
+    qw.simulate = checked
+    t0 = time.perf_counter()
+    try:
+        errors = qw.main(["--device", "cuda"])
+    finally:
+        qw.simulate = real
+    seconds = time.perf_counter() - t0
+    check_launches("float32", seen["steps"], "quantify_window")
+    if WINDOW_SHAPE not in seen["shapes"] or len(errors) != 12:
+        raise AssertionError(f"quantify_window ran {sorted(seen['shapes'])}, {len(errors)} rows")
+    emit("window", errors={f"{n} [{label}] H={H}": {"density_max": d, "num_peds_max": c}
+                           for (n, label, H), (d, c) in errors.items()},
+         melbourne_identical_to_exact={f"{label} H={H}": d == 0.0 and c == 0.0
+                                       for (n, label, H), (d, c) in errors.items()
+                                       if n == "melbourne"},
+         engine_steps=seen["steps"], shapes=sorted(seen["shapes"]), max_mass_err=seen["mass"],
+         seconds=seconds, card=card)
+    return seen["steps"]
+
+
+def phase_scripts(card: str, saved_runs: str) -> dict:
+    """The reset-determinism report, retrain_r3's eval phase, the ablation,
+    the dashboard's HTML export of a run the examples phase saved, and
+    entry()'s step; returns the float32 launches per driver."""
+    import io
+    import os
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import torch
+    from pednstream_tpu_torch.entry import entry
+    from pednstream_tpu_torch.scripts import (ablate_global_reward, network_dashboard,
+                                              reset_determinism_report, retrain_r3)
+
+    c = SCRIPTS
+    before = artifacts_listing()
+    launches, report = {}, {}
+
+    def driver(name, run):
+        reset_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with CheckedSteps() as steps, redirect_stdout(printed):
+            result = run()
+        report[name] = {"seconds": time.perf_counter() - t0, "engine_steps": steps.n,
+                        "max_mass_err": steps.mass_err}
+        if "FAILED" in printed.getvalue():
+            raise AssertionError(f"{name}: {printed.getvalue()[-2000:]}")
+        check_launches("float32", steps.n, name)
+        launches[name] = steps.n
+        return result, printed.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="scripts_") as out:
+        driver("reset_determinism_report", lambda: reset_determinism_report.report(
+            c["reset_dataset"], out=os.path.join(out, "reset"), device="cuda"))
+        stats = json.loads(Path(out, "reset", "statistics.json").read_text())
+        if stats["deterministic"] is not True:
+            raise AssertionError(f"reset determinism: {stats['max_cross_episode_deviation']}")
+        report["reset_determinism_report"]["deterministic"] = True
+
+        driver("retrain_r3", lambda: retrain_r3.main([
+            "--phase", "eval", "--datasets", c["eval_dataset"], "--num-runs",
+            str(c["eval_runs"]), "--out", os.path.join(out, "retrain"), "--device", "cuda"]))
+        results = json.loads(Path(out, "retrain", "eval", c["eval_dataset"],
+                                  "results.json").read_text())
+        report["retrain_r3"]["total_reward"] = {a: [r["total_reward"] for r in rows]
+                                                for a, rows in results.items()}
+        if not all(len(rows) == c["eval_runs"] for rows in results.values()):
+            raise AssertionError(f"retrain_r3 eval: {list(results)}")
+
+        rows, _ = driver("ablate_global_reward", lambda: ablate_global_reward.main([
+            "--dataset", c["ablate_dataset"], "--coefs", *c["ablate_coefs"], "--iters",
+            str(c["ablate_iters"]), "--num-runs", str(c["ablate_runs"]), "--out",
+            os.path.join(out, "ablate"), "--device", "cuda"]))
+        if [r["coef"] for r in rows] != [float(x) for x in c["ablate_coefs"]] or not all(
+                isinstance(r["reward_mean"], float) for r in rows):
+            raise AssertionError(f"ablation rows: {rows}")
+        report["ablate_global_reward"]["reward_mean"] = [r["reward_mean"] for r in rows]
+
+        sim_dir = next(p.parent for p in sorted(Path(saved_runs).rglob("network_params.json")))
+        html = os.path.join(out, "map.html")
+        t0 = time.perf_counter()
+        network_dashboard.main(["--sim-dir", str(sim_dir), "--html", html])
+        text = Path(html).read_text()
+        if "<svg" not in text or len(text) < 10_000:
+            raise AssertionError("the dashboard's HTML export is empty")
+        report["network_dashboard"] = {"sim_dir": sim_dir.name, "html_bytes": len(text),
+                                       "seconds": time.perf_counter() - t0}
+
+    reset_counts()
+    fn, (state,) = entry()
+    t0 = time.perf_counter()
+    new = fn(state)
+    torch.cuda.synchronize()
+    check_launches("float32", 1, "entry")
+    check_state(new)
+    check_mass(new)
+    if new.t != 2 or new.num_peds.device.type != "cuda":
+        raise AssertionError(f"entry: t = {new.t} on {new.num_peds.device}")
+    launches["entry"] = 1
+    report["entry"] = {"seconds": time.perf_counter() - t0, "engine_steps": 1}
+
+    after = artifacts_listing()
+    if after != before:
+        raise AssertionError("artifacts/ changed")
+    emit("scripts", **report, artifacts_unchanged=len(after), card=card)
     return launches
 
 
@@ -2143,10 +2375,22 @@ def main() -> int:
         # phase 14 alone, for work on the multi-device layer; prints no result
         emit("parallel_only", launches=phase_parallel(card, scn), card=card)
         return 0
-    if sys.argv[1:] in (["zoo_cli"], ["examples"]):
-        # phase 15 or 16 alone, for work on the entry points; prints no result
-        phase = phase_zoo_cli if sys.argv[1] == "zoo_cli" else phase_examples
-        emit(sys.argv[1] + "_only", launches=phase(card), card=card)
+    if sys.argv[1:] in (["zoo_cli"], ["examples"], ["sweeps"], ["window"], ["scripts"]):
+        # one of phases 15-19 alone, for work on the entry points; prints no
+        # result (scripts exports a run that long_corridor's example saves)
+        only = sys.argv[1]
+        with tempfile.TemporaryDirectory(prefix="examples_") as saved:
+            if only == "scripts":
+                from pednstream_tpu_torch.examples import long_corridor
+
+                long_corridor.run("cuda", out=saved)
+                got = phase_scripts(card, saved)
+            elif only == "examples":
+                got = phase_examples(card, saved)
+            else:
+                got = {"zoo_cli": phase_zoo_cli, "sweeps": phase_sweeps,
+                       "window": phase_window}[only](card)
+        emit(only + "_only", launches=got, card=card)
         return 0
     if sys.argv[1:] == ["kernel"]:
         # phase 3 alone, to time the kernel of one tree against another's
@@ -2183,10 +2427,22 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["float32"]["zoo_cli"] = phase_zoo_cli(card)
     seconds["zoo_cli"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for name, n in phase_examples(card).items():
-        launches["float32"]["examples_" + name] = n
-    seconds["examples"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="examples_") as saved_runs:
+        t0 = time.perf_counter()
+        for name, n in phase_examples(card, saved_runs).items():
+            launches["float32"]["examples_" + name] = n
+        seconds["examples"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, n in phase_sweeps(card).items():
+            launches["float32"][name] = n
+        seconds["sweeps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches["float32"]["quantify_window"] = phase_window(card)
+        seconds["window"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, n in phase_scripts(card, saved_runs).items():
+            launches["float32"][name] = n
+        seconds["scripts"] = time.perf_counter() - t0
     emit("seconds_per_path", **seconds, card=card)
 
     print(json.dumps({"kernels": [{

@@ -6,7 +6,9 @@
 // _lookback_state and _fused_hist).  For every replica b and link e, over
 // the time-major rings [B, H, E] (time index i lives at row i mod H):
 //
-//   tau    = rint(avg_tt / unit_time)         (clamped to H - 6 when windowed)
+//   tau    = rint(avg_tt / unit_time)         (clamped to H - 6 when windowed;
+//            float rings: rint(avg_tt * r), r = 1 / unit_time in float32,
+//            as XLA compiles the JAX step's division by a constant)
 //   tau_s  = tau_shockwave                    (clamped to H - 1 when windowed)
 //   F      = 1 / (1 + gamma * avg_tt),  m = 1 - F,  q = m * m
 //   coefs  = (F, F*m, F*q, F*(q*m))           all float32
@@ -84,7 +86,7 @@ struct HistoryArgs {
     const int* t_vec;  // [B] per-replica step, or null: every replica is at t
     T* out;  // [3, B, E]: ci, co, diff
     int B, H, E, t, windowed;
-    float unit_time;
+    float unit_time;  // float rings: its float32 reciprocal
 };
 
 // rows per window of XLA's CPU tree reduction (ops/ncurve.py SLOT_WINDOW)
@@ -111,7 +113,8 @@ __global__ void history_reads_kernel(const HistoryArgs<T> a) {
     const float tt = __ldg(a.avg_tt + b * a.avg_tt_stride + e);
     const float g = to_f32(__ldg(a.gamma + b * a.gamma_stride + e));
     int tau_s = __ldg(a.tau_shockwave + b * a.tau_stride + e);
-    int tau = __float2int_rn(__fdiv_rn(tt, a.unit_time));  // round half to even
+    // round half to even
+    int tau = __float2int_rn(kLagOrder ? __fdiv_rn(tt, a.unit_time) : __fmul_rn(tt, a.unit_time));
     if (a.windowed) {
         tau = min(tau, H - 6);
         tau_s = min(tau_s, H - 1);
@@ -201,7 +204,9 @@ int launch_history(const void* cum_in_ring, const void* cum_out_ring, const void
 // tau_shockwave int32, each [E] or [B, E] with unit stride along the links
 // and the given replica stride (0 or E); out [3, B, E] of the rings' type
 // (ci, co, diff).  t_vec is null (every replica at step t) or int32 [B] on
-// the device (t is then ignored).  windowed is 0 or 1.  Each launches on
+// the device (t is then ignored).  unit_time is the step's length for
+// double rings and its float32 reciprocal for float rings.  windowed is 0
+// or 1.  Each launches on
 // `stream` (a cudaStream_t) and returns cudaGetLastError(): 0 when the
 // launch was accepted.
 extern "C" int ncurve_history_reads(

@@ -54,6 +54,7 @@ import torch
 
 from .fd import link_flow_kv, speed_from_density
 from .ops import fused_history_reads
+from .ops.ncurve import reciprocal_f32
 from .routing import seq_sum, turning_fractions_dense, turning_fractions_step
 from .state import EngineParams, NetworkState, StepOutputs
 from .topology import FD_TYPES
@@ -370,6 +371,15 @@ def _node_solve(scn, ep: EngineParams, t, S, R, phi_c=None, phi=None):
     return inflow_e, outflow_e, virt_dep, virt_arr
 
 
+def _div_by(scn, x, c):
+    """``x / c`` for a constant ``c`` as the JAX step computes it: XLA turns
+    the fast path's float32 division into a multiply by the float32
+    reciprocal; the exact-parity path divides."""
+    if scn.exact_parity or x.dtype != _f32:
+        return x / c
+    return x * reciprocal_f32(c)
+
+
 def _update_link_states(scn, ep: EngineParams, st: NetworkState, t,
                         inflow_e, outflow_e, links, gen, stochastic: bool):
     """Density and FD speed/travel-time update (network.py:257-264,
@@ -409,10 +419,10 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t,
         slot = torch.remainder(t - W, W).long().view(-1, 1, 1).expand(-1, 1, run_sum.shape[1])
         full = (t >= W).unsqueeze(1)
         run_sum = torch.where(full, run_sum - st.tt_ring.gather(1, slot).squeeze(1), run_sum)
-        avg_tt = torch.where(full, run_sum / W, ep.travel_time0)
+        avg_tt = torch.where(full, _div_by(scn, run_sum, W), ep.travel_time0)
     elif t >= W:
         run_sum = run_sum - st.tt_ring[:, (t - W) % W]
-        avg_tt = run_sum / W
+        avg_tt = _div_by(scn, run_sum, W)
     else:
         avg_tt = ep.travel_time0.expand_as(run_sum)
     _write_row(st.tt_ring, t, W, travel_time)

@@ -36,6 +36,14 @@ _COUNT_LOCK = threading.Lock()
 SLOT_WINDOW = 32
 
 
+def reciprocal_f32(c: float) -> float:
+    """``1 / c`` rounded to float32, as XLA folds it: the JAX step's float32
+    divisions by a constant (``avg_tt / unit_time``, ``run_sum / W``) are
+    compiled as multiplies by this reciprocal."""
+    one = torch.ones((), dtype=_F32)
+    return float(one / torch.full((), c, dtype=_F32))
+
+
 def lookback(avg_tt, gamma, tau_shockwave, t, H: int, unit_time: float, windowed: bool):
     """The step's lookback (``pednstream_tpu.engine._lookback_state`` and
     the index arithmetic of ``_fused_hist``) on tensors.
@@ -51,8 +59,11 @@ def lookback(avg_tt, gamma, tau_shockwave, t, H: int, unit_time: float, windowed
     with ``tau_s`` clamped to ``H - 1`` when ``windowed``, each int32
     ``[B, E]``.
     """
-    # a tensor divisor: a Python scalar divides by its reciprocal on CUDA
-    tau = torch.round(avg_tt / avg_tt.new_full((), unit_time)).to(_I32)
+    if gamma.dtype == _F32:
+        tau = torch.round(avg_tt * reciprocal_f32(unit_time)).to(_I32)
+    else:
+        # a tensor divisor: a Python scalar divides by its reciprocal on CUDA
+        tau = torch.round(avg_tt / avg_tt.new_full((), unit_time)).to(_I32)
     tau_shock = tau_shockwave
     if windowed:
         # bounded N-curve and shockwave lookbacks: stay inside the ring
@@ -211,7 +222,7 @@ def _launch(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave
             avg_tt.data_ptr(), strides[0], gamma.data_ptr(), strides[1],
             tau_shockwave.data_ptr(), strides[2], out.data_ptr(), B, H, E,
             0 if per_replica else t, t.data_ptr() if per_replica else None,
-            unit_time, int(windowed))
+            unit_time if dtype == torch.float64 else reciprocal_f32(unit_time), int(windowed))
     if dev.index == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     else:

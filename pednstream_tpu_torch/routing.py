@@ -8,9 +8,12 @@ how the per-step segment sums are laid out: the JAX fast path sums with
 static one-hot matrices (a matmul rides the TPU's MXU), which the GPU does
 not need.  Here every segment -- a softmax group, an (up, od) mixing
 group, a compact phi slot -- gets a static padded member table
-``[segments, Lmax]`` (entry ids in ascending order, -1 padding), and
-:func:`turning_fractions_step` sums it with an explicit left-to-right loop
-over ``Lmax``.  That order is fixed, so the sum is deterministic on the
+``[segments, Q, L]`` (entry ids in ascending order, -1 padding), and
+:func:`segment_sum` walks it in one padded loop over ``L``.  The rows
+``Q`` fix the order: one left-to-right row for the exact-parity path,
+and for the fast path the lanes in which XLA's CPU GEMV adds the one-hot
+product, so the sum is the JAX package's bit for bit (at one replica;
+``GEMV_LANES``).  The order is static, so the sum is deterministic on the
 GPU, where ``index_add_``/``scatter_add_`` use float atomics whose order
 changes from run to run.
 """
@@ -224,11 +227,12 @@ class RoutingTables(_Tensors):
     omega: float
     routed_ids: torch.Tensor  # [NR] sorted routed node ids
 
-    # padded segment tables: member entry ids in ascending order, -1 pad
-    group_members: torch.Tensor  # [G, Lg] turn entries of each softmax group
-    uo_group_members: torch.Tensor  # [UG, Lu] uo entries of each (node, up)
+    # padded segment tables [segments, Q, L] (``_members``): member entry
+    # ids in ascending order per summation lane, -1 pad
+    group_members: torch.Tensor  # [G, Q, Lg] turn entries of each softmax group
+    uo_group_members: torch.Tensor  # [UG, Q, Lu] uo entries of each (node, up)
     te_phi_c: torch.Tensor  # [K] compact phi slot r*M*M + up*M + down
-    phi_c_members: torch.Tensor  # [NR*M*M, Lp] turn entries of each slot
+    phi_c_members: torch.Tensor  # [NR*M*M, Q, Lp] turn entries of each slot
 
     # static per-step constants in the flow dtype
     dist_util: torch.Tensor  # [K] alpha * te_dist / (group_dist_sum + 1e-6)
@@ -242,15 +246,36 @@ class RoutingTables(_Tensors):
 
 
 
-def _members(seg_ids: np.ndarray, num: int) -> np.ndarray:
-    """Padded member table ``[num, Lmax]``: the entries of each segment in
-    ascending entry order, -1 padding."""
-    counts = np.bincount(seg_ids, minlength=num)
-    out = -np.ones((num, max(int(counts.max(initial=0)), 1)), dtype=np.int64)
-    fill = np.zeros(num, dtype=np.int64)
-    for i, s in enumerate(seg_ids):
-        out[s, fill[s]] = i
-        fill[s] += 1
+# XLA's CPU backend, under the flags the JAX package's tests set (SSE4.2,
+# no FMA), sums the fast path's one-hot products ``vals @ onehot`` as a
+# row-major GEMV of 128-bit vectors: entry k of K adds into lane ``k % W``
+# (W = 4 float32, 2 float64) while ``k < K - K % W``, each lane left to
+# right from 0, the rest into a scalar epilogue; then the lanes pairwise,
+# ``((l0 + l2) + (l1 + l3))``, and the epilogue last.  A fixed function of
+# the entries' positions, so the member tables carry it.
+GEMV_LANES = {torch.float32: 4, torch.float64: 2}
+
+
+def _members(seg_ids: np.ndarray, num: int, lanes: int = 0) -> np.ndarray:
+    """Padded member table ``[num, Q, L]``, -1 padding: with ``lanes == 0``
+    one row per segment (``Q = 1``), its entries in ascending order, added
+    left to right; else ``Q = lanes + 1`` rows, the entries of each GEMV
+    lane and then of the epilogue, each in ascending order
+    (:func:`segment_sum` combines them in XLA's order)."""
+    K = len(seg_ids)
+    if lanes:
+        tail = K - K % lanes
+        row = np.where(np.arange(K) < tail, np.arange(K) % lanes, lanes)
+    else:
+        row = np.zeros(K, dtype=np.int64)
+    Q = lanes + 1
+    counts = np.zeros((num, Q), dtype=np.int64)
+    np.add.at(counts, (seg_ids, row), 1)
+    out = -np.ones((num, Q, max(int(counts.max(initial=0)), 1)), dtype=np.int64)
+    fill = np.zeros((num, Q), dtype=np.int64)
+    for i, (s, q) in enumerate(zip(seg_ids, row)):
+        out[s, q, fill[s, q]] = i
+        fill[s, q] += 1
     return out
 
 
@@ -260,6 +285,7 @@ def build_routing_tables(
     od_pairs: List[Tuple[int, int]],
     ftype=torch.float32,
     device=DEFAULT,
+    exact_parity: bool = False,
 ) -> Optional[RoutingTables]:
     """Compile turn tables from enumerated paths.
 
@@ -267,7 +293,9 @@ def build_routing_tables(
     per routed node (source_num > 2 and on some path), for each relevant OD
     pair, each (up, down) turn keeps the *shortest* remaining distance over
     all paths realizing it; ods_in_turns / up_od_probs record which OD pairs
-    use each turn / upstream arm.
+    use each turn / upstream arm.  The segment tables add left to right
+    for the exact-parity path (the reference's ``np.add.at`` order) and in
+    the JAX fast path's GEMV order otherwise (``GEMV_LANES``).
     """
     device = resolve(device)
     od_index = {p: i for i, p in enumerate(od_pairs)}
@@ -372,6 +400,7 @@ def build_routing_tables(
     inv = fd(1.0) / np.maximum(topo.node_arity[routed_ids].astype(fd) - fd(1.0), fd(1.0))
     offdiag_uniform = np.where(offdiag, inv[:, None, None], fd(0.0)).astype(fd)
 
+    lanes = 0 if exact_parity else GEMV_LANES[ftype]
     t = lambda a: torch.as_tensor(a, device=device)
     return RoutingTables(
         te_dist=t(te_dist),
@@ -389,10 +418,10 @@ def build_routing_tables(
         beta=float(builder.beta),
         omega=float(builder.omega),
         routed_ids=t(routed_ids),
-        group_members=t(_members(te_group, G)),
-        uo_group_members=t(_members(uo_group, UG)),
+        group_members=t(_members(te_group, G, lanes)),
+        uo_group_members=t(_members(uo_group, UG, lanes)),
         te_phi_c=t(te_phi_c),
-        phi_c_members=t(_members(te_phi_c, NR * M * M)),
+        phi_c_members=t(_members(te_phi_c, NR * M * M, lanes)),
         dist_util=t(dist_util),
         uo_inv_count=t(uo_inv_count),
         offdiag_uniform=t(offdiag_uniform),
@@ -408,14 +437,48 @@ def build_routing_tables(
 # --------------------------------------------------------------------------
 
 def segment_sum(vals: torch.Tensor, members: torch.Tensor) -> torch.Tensor:
-    """``out[..., s] = sum of vals[..., members[s, l]]`` over the valid
-    members, added left to right in ascending entry order."""
+    """``out[..., s]`` = the sum of ``vals[..., members[s]]`` over the valid
+    members of a ``[S, Q, L]`` table (``_members``): each of the Q rows
+    added left to right in one padded walk over L, then the rows combined
+    in XLA's GEMV order (``Q = 1``: the row itself)."""
     safe = members.clamp(min=0)
     valid = members >= 0
-    out = torch.where(valid[:, 0], vals[..., safe[:, 0]], 0.0)
-    for col in range(1, members.shape[1]):
-        out = out + torch.where(valid[:, col], vals[..., safe[:, col]], 0.0)
-    return out
+    out = torch.where(valid[..., 0], vals[..., safe[..., 0]], 0.0)
+    for col in range(1, members.shape[-1]):
+        out = out + torch.where(valid[..., col], vals[..., safe[..., col]], 0.0)
+    lanes = members.shape[1] - 1
+    if lanes == 4:
+        return ((out[..., 0] + out[..., 2]) + (out[..., 1] + out[..., 3])) + out[..., 4]
+    if lanes == 2:
+        return (out[..., 0] + out[..., 1]) + out[..., 2]
+    return out[..., 0]
+
+
+# XLA's CPU float32 exp (the Cephes polynomial, each step rounded on its
+# own, subnormal results flushed to zero), the constants as XLA emits them
+_EXP_LO, _EXP_HI = -87.80000305175781, 88.80000305175781
+_LOG2E = 1.4426950216293335
+_LN2_HI, _LN2_LO = 0.693359375, -0.00021219444170128554
+_EXP_P = (0.00019875691214110702, 0.001398199936375022, 0.008333452045917511,
+          0.04166579619050026, 0.1666666567325592, 0.5)
+_F32_TINY = 1.1754943508222875e-38
+
+
+def exp_like_xla(x: torch.Tensor) -> torch.Tensor:
+    """``exp(x)`` as the JAX package computes it: bitwise XLA's CPU float32
+    exp for float32 ``x`` (torch's differs by an ulp on ~4 % of the logit
+    utilities), ``torch.exp`` for float64."""
+    if x.dtype != torch.float32:
+        return torch.exp(x)
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(x * _LOG2E + 0.5), -127.0, 127.0)
+    r = (x - _LN2_HI * n) - _LN2_LO * n
+    y = r * _EXP_P[0] + _EXP_P[1]
+    for p in _EXP_P[2:]:
+        y = y * r + p
+    y = (y * (r * r) + r) + 1.0
+    y = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(y < _F32_TINY, 0.0, y)
 
 
 def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -453,7 +516,7 @@ def _turn_contributions(rt: RoutingTables, density_for_routing, recv_prev, cap_d
     cap_sum = segment_sum(cap, rt.group_members)
     util = ((rt.dist_util + (rt.beta * norm_d).to(f))
             - rt.omega * cap / (cap_sum[:, rt.te_group] + 1e-6))
-    z = torch.exp(-rt.temp * util)
+    z = exp_like_xla(-rt.temp * util)
     p_turn = z / segment_sum(z, rt.group_members)[:, rt.te_group]
     return p_turn * p_uo[..., rt.te_uo_idx]
 
@@ -483,8 +546,9 @@ def turning_fractions_step(
     B = contrib.shape[0]
     phi = segment_sum(contrib, rt.phi_c_members).reshape(B, rt.num_routed, M, M)
 
-    # row-normalization guard (check_fractions, path_finder.py:691-715)
-    rowsum = phi.sum(dim=-1, keepdim=True)
+    # row-normalization guard (check_fractions, path_finder.py:691-715);
+    # XLA reduces the short slot axis left to right
+    rowsum = seq_sum(phi, -1).unsqueeze(-1)
     need_fix = torch.abs(rowsum - 1.0) > 1e-3
     pos = rowsum > 1e-6
     phi_norm = phi / torch.where(pos, rowsum, 1.0)

@@ -310,7 +310,8 @@ def build_scenario(
         _, controller_nodes, _, controller_links = parse_controllers(params)
         builder = PathSetBuilder(topo, params, controller_nodes, controller_links)
         builder.find_od_paths(od_pairs)
-        routing = build_routing_tables(topo, builder, od_pairs, ftype, device)
+        routing = build_routing_tables(topo, builder, od_pairs, ftype, device,
+                                       exact_parity)
 
     lp = topo.link_params
     derived = _link_constants(lp, float(params["unit_time"]))

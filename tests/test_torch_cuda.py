@@ -89,7 +89,11 @@ def assert_kernel_is_plain(ops, dtype=torch.float32):
                                    # butterfly_scC; grid_50x50; the link-sharded
                                    # grid's block; delft
                                    (256, 64, 20), (1, 64, 20), (16, 64, 9800),
-                                   (4, 16, 54120), (1, 501, 818)])
+                                   (4, 16, 54120), (1, 501, 818),
+                                   # the sweeps' largest rows; quantify_window's
+                                   # full ring on grid_50x50
+                                   (1536, 16, 938), (1280, 32, 938), (512, 64, 9800),
+                                   (512, 32, 9800), (1, 501, 9800)])
 def test_kernel_equals_plain_bitwise(cuda, B, H, E):
     assert_kernel_is_plain(make_operands(B, H, E, seed=B + H + E, device=cuda))
 
@@ -535,3 +539,39 @@ def test_grid_scale_on_cuda(cuda):
             assert x.is_cuda and bool(torch.isfinite(x).all()) and not bool((x < 0).any()), name
     err = (st.cum_in - st.cum_out - st.num_peds).abs().max().item()
     assert err <= 5 * 1.5 * 2.0 ** -23 * max(st.cum_in.abs().max().item(), 1.0)
+
+
+def test_sweep_row_on_cuda(cuda):
+    """One melbourne sweep row, cut short: a warm run and one timed run of
+    5 stochastic steps of 64 replicas, one launch per step, the final
+    states on the card and mass-conserving."""
+    from pednstream_tpu_torch.scripts.sweep_melbourne import measure
+
+    args = NetworkEnvGenerator().scenario_args("melbourne")
+    scn = build_scenario(**args, history_window=16, binomial_mode="fast")
+    finals = []
+    before = fused_history_reads.launches["float32"]
+    rate = measure(scn, 64, 5, reps=1, check=finals.append)
+    assert rate > 0 and fused_history_reads.launches["float32"] == before + 10
+    for final in finals:
+        assert final.density.device.type == "cuda" and final.t == 6
+        err = (final.cum_in - final.cum_out - final.num_peds).abs().max().item()
+        assert err <= 5 * 1.5 * 2.0 ** -23 * max(final.cum_in.abs().max().item(), 1.0)
+
+
+def test_entry_on_cuda(cuda):
+    """``entry()`` with no device: one launch, a step on the card equal to
+    ``make_step``'s with a generator of the same seed."""
+    from pednstream_tpu_torch.engine import make_step
+    from pednstream_tpu_torch.entry import entry
+
+    fn, (state,) = entry(seed=3)
+    before = fused_history_reads.launches["float32"]
+    got = fn(state)
+    assert fused_history_reads.launches["float32"] == before + 1
+    scn = NetworkEnvGenerator().create_network("melbourne")
+    step = make_step(scn, stochastic=True, gen=torch.Generator(device="cuda").manual_seed(3))
+    want, _ = step(scn.engine_params, scn.init_state())
+    assert got.t == want.t == 2 and got.num_peds.device.type == "cuda"
+    for f in ("num_peds", "cum_in", "cum_out", "avg_tt", "cum_in_ring"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from pednstream_tpu import engine as jax_engine
+from pednstream_tpu import generator as jax_generator
 from pednstream_tpu.fd import speed_from_density as jax_speed
 from pednstream_tpu.routing import turning_fractions_step as jax_turning
 from pednstream_tpu.scenario import build_scenario as jax_build
@@ -107,6 +108,90 @@ def test_turning_fractions_match_jax(name):
                                      torch.from_numpy(recv)[None],
                                      torch.from_numpy(cap)[None], torch.from_numpy(od))
         np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=RTOL, atol=1e-7)
+
+
+def _routing_operands(ts):
+    """The arguments the port's first engine step passes to
+    ``turning_fractions_step`` (deterministic, from the initial state)."""
+    seen = []
+    real = engine.turning_fractions_step
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    engine.turning_fractions_step = record
+    try:
+        engine.step_fn(ts, ts.engine_params, ts.init_state(), stochastic=False)
+    finally:
+        engine.turning_fractions_step = real
+    (rt, M, dens, recv, cap, od), = seen
+    return rt, M, dens, recv, cap, od
+
+
+def test_turning_fractions_bitwise_at_delft_step_1():
+    """delft's compact turning fractions on its first step's operands equal
+    JAX's ``turning_fractions_step(exact=False, compact=True)`` bit for
+    bit, at B = 1 and for a batch of 6 replicas (each row on other
+    densities): the logit's exp is XLA's float32 polynomial
+    (``routing.exp_like_xla``), the one-hot products sum in its GEMV lanes
+    (``routing.GEMV_LANES``), the guard's row sum left to right.  JAX's
+    batched (vmapped) form is a GEMM whose order follows Eigen's blocking;
+    the port's rows equal JAX's one-replica result, and JAX's batch within
+    rtol 1e-6 (ROADMAP.md §3)."""
+    js = jax_generator.NetworkEnvGenerator().create_network("delft")
+    ts = NetworkEnvGenerator().create_network("delft")
+    rt, M, dens, recv, cap, od = _routing_operands(ts)
+    jt = jax.jit(lambda d, r, c, o: jax_turning(
+        js.routing, js.n_nodes, js.max_deg, js.node_arity, js.slot_valid, d, r, c, o,
+        js.engine_params.phi_base, exact=False, compact=True))
+    rng = np.random.default_rng(4)
+    B = 6
+    dens_b = torch.cat([dens, torch.from_numpy(rng.uniform(0, 6, (B - 1, dens.shape[1]))
+                                               .astype(np.float32))])
+    want = [np.asarray(jt(*(jnp.asarray(x.numpy()) for x in (d, recv[0], cap[0], od))))
+            for d in dens_b]
+    got1 = turning_fractions_step(rt, M, dens, recv, cap, od)
+    np.testing.assert_array_equal(got1[0].numpy(), want[0])
+    got = turning_fractions_step(rt, M, dens_b, recv.expand(B, -1), cap.expand(B, -1), od)
+    for b in range(B):
+        np.testing.assert_array_equal(got[b].numpy(), want[b])
+    jb = np.asarray(jax.vmap(jt, in_axes=(0, None, None, None))(
+        *(jnp.asarray(x.numpy()) for x in (dens_b, recv[0], cap[0], od))))
+    np.testing.assert_allclose(got.numpy(), jb, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("groups", [
+    "uo", pytest.param("te", marks=pytest.mark.slow)])  # te: a 1 GB one-hot constant
+def test_segment_sums_bitwise_on_env_tables(groups):
+    """The fast path's segment sums on the 45_intersections env's
+    OD-candidate tables: ``tot`` over the 172 (node, up) groups of up to
+    301 members (``uo``), and ``cap_sum`` and ``zsum`` over the 13,147
+    softmax groups (``te``), on random values.  Each row of the port's
+    batched padded walk equals JAX's one-hot product ``vals @ onehot`` bit
+    for bit, the one-hot a constant of the jitted function as in the JAX
+    step (XLA lays it out for the product; as an argument it is another
+    GEMV)."""
+    from pednstream_tpu.env import PedNetParallelEnv as JaxEnv
+    from pednstream_tpu_torch.env import PedNetParallelEnv
+    from pednstream_tpu_torch.routing import segment_sum
+
+    kw = dict(od_randomize=True, seed=0)
+    jrt = JaxEnv("45_intersections", **kw).scn.routing
+    trt = PedNetParallelEnv("45_intersections", device="cpu", **kw).scn.routing
+    if groups == "uo":
+        members, onehot, sums = trt.uo_group_members, jrt.onehot_uo_group, 1
+        assert int((members >= 0).sum(dim=(1, 2)).max()) == 301
+    else:
+        members, onehot, sums = trt.group_members, jrt.onehot_te_group, 2
+    assert members.shape[1] == 5  # four float32 lanes and the epilogue
+    gemv = jax.jit(lambda v, oh=np.asarray(onehot, dtype=np.float32): v @ oh)
+    rng = np.random.default_rng(7)
+    for _ in range(sums):
+        vals = rng.lognormal(0.0, 2.0, (3, onehot.shape[0])).astype(np.float32)
+        got = segment_sum(torch.from_numpy(vals), members).numpy()
+        for b in range(3):
+            np.testing.assert_array_equal(got[b], np.asarray(gemv(jnp.asarray(vals[b]))))
 
 
 @pytest.mark.parametrize("name", ["butterfly_scC", "melbourne"])

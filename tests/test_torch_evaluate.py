@@ -189,16 +189,12 @@ def deterministic(env_cls, **fixed):
 def test_zoo_ppo_checkpoint_evaluates_as_in_jax(tmp_path, monkeypatch):
     """The shipped butterfly_scC PPO checkpoint through both packages'
     ``evaluate_agents`` on the nominal network with deterministic engine
-    steps: the same total reward within rtol 3e-4 and metrics within
-    1.5e-2.  The diffusion term's four products are summed in the JAX
-    read's slot order (bitwise, test_torch_ops.py), but the two engines
-    still part by single pedestrians in congested spells and rejoin: the
-    JAX step is compiled by XLA, which divides by a constant as a multiply
-    by its reciprocal (``run_sum / W``, ``avg_tt / unit_time``), so
-    ``avg_tt`` differs by an ulp from the first action on and a rounded
-    lag or ``ceil`` flips now and then (ROADMAP.md §3).  Measured: 2.1e-4
-    of the total reward under this policy; the offline metrics are
-    differences of large sums (the delay 0.8-0.9 % apart)."""
+    steps: the same total reward and metrics within rtol 1e-6.  The engine
+    states are bitwise equal over the whole episode (the float32 step
+    computes the turning fractions' exp and one-hot sums in XLA's CPU
+    order and divides by a constant as a reciprocal multiply, ROADMAP.md
+    §3); what is left is the order of the host's sums over the episode.
+    Measured: 2.9e-9 of the total reward, 1.2e-7 of the delay."""
     ckpt = {"ppo": str(ZOO / "ppo_agents_butterfly_scC")}
     monkeypatch.setattr(port_env_pkg, "PedNetParallelEnv",
                         deterministic(port_env_pkg.PedNetParallelEnv))
@@ -212,8 +208,7 @@ def test_zoo_ppo_checkpoint_evaluates_as_in_jax(tmp_path, monkeypatch):
     assert want["total_reward"] < 0
     for key, value in want.items():
         if isinstance(value, (int, float)) and key != "run":
-            rtol = 3e-4 if key == "total_reward" else 1.5e-2
-            np.testing.assert_allclose(got[key], value, rtol=rtol, atol=1e-9, err_msg=key)
+            np.testing.assert_allclose(got[key], value, rtol=1e-6, atol=1e-9, err_msg=key)
 
 
 # -- adapters (the counterparts of tests/test_adapters.py, tests/test_rllib_stub.py) --

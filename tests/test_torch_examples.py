@@ -76,14 +76,6 @@ GENERATOR = (jax_generator.NetworkEnvGenerator, "create_network")
 BUILD = (pednstream_tpu, "build_scenario")
 SCENARIO = (jax_scenario, "build_scenario")
 
-# delft's float32 step parts from JAX's at its first step: node 142 sends
-# one pedestrian more into links 528 and 532 there (its turning fractions'
-# sums differ by an ulp and the floor of the split flips; ROADMAP.md §3),
-# and the difference walks on: measured one more each step on a link for
-# the first 8 steps (4 after 4 steps, the horizon here; 18 in cum_in after
-# 12).  Every other example agrees at rtol 1e-6.
-ATOL = {"delft_exp": 4.0}
-
 # example -> (the JAX call replaced, its argv, the port's build, the CPU horizon).
 # The JAX calls: melbourne.py:52, long_corridor.py:44, six_node.py:31,
 # spike.py:37-38, forky_queues.py:30, nine_node.py:45-47, delft_exp.py:18,
@@ -95,7 +87,7 @@ CASES = {
     "spike": (BUILD, (), lambda: spike.build("cpu"), 120),
     "forky_queues": (BUILD, (), lambda: forky_queues.build("cpu"), 40),
     "nine_node": (BUILD, (), lambda: nine_node.build("cpu"), 40),
-    "delft_exp": (GENERATOR, (), lambda: delft_exp.build("cpu"), 4),
+    "delft_exp": (GENERATOR, (), lambda: delft_exp.build("cpu"), 12),
     "big_network": (SCENARIO, (), lambda: big_network.build(False, "cpu"), 12),
     "big_network --directions": (SCENARIO, ("--directions",),
                                  lambda: big_network.build(True, "cpu"), 12),
@@ -107,7 +99,7 @@ CASES = {
 def test_scenario_and_deterministic_run_match_jax(monkeypatch, case):
     """The example's scenario, array for array, then a deterministic
     rollout of it through both engines (the JAX step jitted with its
-    parameters as an argument) at rtol 1e-6 (delft: see ``ATOL``)."""
+    parameters as an argument) at rtol 1e-6."""
     where, argv, build, steps = CASES[case]
     js = jax_example_scenario(monkeypatch, case.split()[0], where, argv)
     ts = build()
@@ -120,7 +112,7 @@ def test_scenario_and_deterministic_run_match_jax(monkeypatch, case):
     for f in ("num_peds", "density", "cum_in", "cum_out", "inflow", "outflow",
               "virt_arr_cum"):
         np.testing.assert_allclose(getattr(got, f)[0].numpy(), np.asarray(getattr(want, f)),
-                                   rtol=1e-6, atol=ATOL.get(case, 1e-6), err_msg=f)
+                                   rtol=1e-6, atol=1e-6, err_msg=f)
     assert float(got.cum_in.sum()) > 0
 
 

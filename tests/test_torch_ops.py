@@ -311,7 +311,8 @@ def test_plain_float64_matches_jax_exact_path(x64_on):
 
 def test_plain_sum_order_is_the_kernels():
     """The plain version's diff is the window-and-slot-order sum
-    (``slot_order_sum``) of float32 products of the port's coefficients
+    (``slot_order_sum``) at tau = rint(avg_tt * float32(1 / unit_time)) of
+    float32 products of the port's coefficients
     (F, F m, F (m m), F ((m m) m)), each term 0 where base - k < 0: the
     arithmetic csrc/ncurve.cu does, step for step, so equality is exact."""
     H = 16
@@ -323,7 +324,7 @@ def test_plain_sum_order_is_the_kernels():
     want = np.zeros(avg_tt.shape, f32)
     for b in range(2):
         for e in range(33):
-            tau = int(np.rint(f32(avg_tt[b, e]) / f32(UNIT_TIME)))
+            tau = int(np.rint(f32(avg_tt[b, e]) * (f32(1) / f32(UNIT_TIME))))
             F = f32(1) / (f32(1) + gamma[e] * avg_tt[b, e])
             m = f32(1) - F
             q = m * m

@@ -156,21 +156,30 @@ def assert_builds_match(js, ts):
 @pytest.mark.parametrize("name", ["butterfly_scC", "melbourne", "nine_intersections"])
 def test_padded_segment_tables(name):
     """Each padded member table lists exactly the entries of its segment,
-    in ascending order, then -1 padding."""
-    rt = torch_build(**scenario_args(name)).routing
-    M = rt.offdiag_uniform.shape[-1]
-    for members, seg, num in [
-        (rt.group_members, rt.te_group, rt.num_groups),
-        (rt.uo_group_members, rt.uo_group, rt.num_uo_groups),
-        (rt.phi_c_members, rt.te_phi_c, rt.num_routed * M * M),
-    ]:
-        members, seg = members.numpy(), seg.numpy()
-        assert members.shape[0] == num
-        for s in range(num):
-            want = np.flatnonzero(seg == s)
-            row = members[s]
-            np.testing.assert_array_equal(row[: len(want)], want)
-            assert (row[len(want):] == -1).all()
+    in ascending order, then -1 padding: in one row for the exact-parity
+    path, and spread over the rows of XLA's GEMV order otherwise (entry k
+    of K in row ``k % W`` below ``K - K % W``, else in row W; W = 4 for
+    float32, 2 for float64)."""
+    for kw, W in [({}, 4), (dict(ftype=torch.float64), 2),
+                  (dict(ftype=torch.float64, exact_parity=True), 0)]:
+        rt = torch_build(**scenario_args(name), **kw).routing
+        M = rt.offdiag_uniform.shape[-1]
+        for members, seg, num in [
+            (rt.group_members, rt.te_group, rt.num_groups),
+            (rt.uo_group_members, rt.uo_group, rt.num_uo_groups),
+            (rt.phi_c_members, rt.te_phi_c, rt.num_routed * M * M),
+        ]:
+            members, seg = members.numpy(), seg.numpy()
+            K = len(seg)
+            row = (np.where(np.arange(K) < K - K % W, np.arange(K) % W, W) if W
+                   else np.zeros(K, dtype=np.int64))
+            assert members.shape[:2] == (num, W + 1)
+            for s in range(num):
+                for q in range(W + 1):
+                    want = np.flatnonzero((seg == s) & (row == q))
+                    got = members[s, q]
+                    np.testing.assert_array_equal(got[: len(want)], want)
+                    assert (got[len(want):] == -1).all()
 
 
 @pytest.fixture
