@@ -5,16 +5,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py kernel``, ``parallel``, ``zoo_cli``, ``examples``,
-``sweeps``, ``window`` or ``scripts`` runs phase 3, 14, 15, 16, 17, 18 or 19
-alone and prints no result line.)
+(``python3 chip_smoke.py kernel``, ``hot``, ``parallel``, ``zoo_cli``,
+``examples``, ``sweeps``, ``window`` or ``scripts`` runs phase 3, 3b, 14,
+15, 16, 17, 18 or 19 alone and prints no result line.)
 
 Phases, each printing one JSON line (a failing phase raises, and the script
 exits non-zero):
 
 1. device: a CUDA card must be present; prints its name and power limit.
-2. build: compiles the kernels from ``pednstream_tpu_torch/csrc`` (or loads
-   the library built for the same sources).
+2. build: compiles the kernels from ``pednstream_tpu_torch/csrc``, one
+   ``nvcc`` per source, all at once, linked into one library (or loads the
+   library built for the same sources).
 3. kernel vs plain: ``fused_history_reads`` (the lookback and the three
    ring reads in one kernel) on the card against its plain PyTorch
    version on the same CUDA operands, bitwise, for each of its two
@@ -32,6 +33,22 @@ exits non-zero):
    plain version's time, the bound (each byte moved once, at the card's
    memory rate), the sector bound of the rings' layout (each distinct
    32-byte sector the scattered ring reads touch) and the shares reached.
+3b. hot ops: the hand kernels of the step's two eager hot spots against
+   their plain versions on the same CUDA operands, bitwise: the fast
+   binomial (``ops.binom_fast``, ``csrc/binom.cu``) at the main path's three
+   call sites (real operands: release, activity, reverse occupancy) and at
+   random operands at the other fast-sampling paths' shapes; the routed
+   turning fractions (``ops.turning_fractions``, ``csrc/routing.cu``) at the
+   main path's and the env episode's real operands and at random operands
+   on every other table form (the env's with a shared od flow, the served
+   melbourne, the trainers' env, butterfly_scC, delft, grid_50x50, float64
+   exact parity: the het batch and a routed golden scenario).  Each case
+   prints device µs (a CUDA graph of launches), wrapper host µs, the plain
+   version's time and the bound (bytes this data needs over the memory
+   rate against float operations over the float32 or float64 rate).  Then
+   100 stochastic main-path steps and 50 env RL steps, each with the kernels
+   and with the plain versions from one seed: every state leaf (and the
+   env's observations and rewards) bit for bit.
 4. main path: the melbourne scenario (938 directed links), 1024 lockstep
    replicas, a 16-step history window, the fast binomial sampler, 500
    stochastic steps through ``simulate_batched`` on the card with no host
@@ -173,14 +190,24 @@ exits non-zero):
 
 Phase 3 also holds the kernel at phases 17 and 18's new shapes: (1536, 16,
 938), (1280, 32, 938), (512, 64, 9800), (512, 32, 9800) and (1, 501, 9800).
-It then prints the kernels' record, the card's ``nvidia-smi`` line and, as
-the last line, ``{"ok": true, "device": {...}}``.
+Every path also holds the hot-op kernels' launches to what its engine steps
+expect (``HotSteps``, counted from the steps' scenarios): one routing launch
+per step of a routed scenario, three binomial launches per stochastic
+fast-binomial step (two where the activity stay is decided zero); the
+parallel phase's ranks report theirs.
+It then prints the kernels' record (the fused read per form, the routing
+kernel per flow dtype, the binomial kernel, each with its launches per
+path: those of the path's checked runs, each counted from 0 set just
+before it, warm-ups and comparisons left out), the card's ``nvidia-smi`` line and, as the last line, ``{"ok":
+true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -256,6 +283,14 @@ SCRIPTS = {"reset_dataset": "butterfly_scC", "eval_dataset": "long_corridor", "e
            "ablate_dataset": "metered_corridor", "ablate_coefs": ("0.0", "0.1"),
            "ablate_iters": 1, "ablate_runs": 1}
 
+
+# phase 3b (hot ops): the bitwise rollouts' depth, and the fast binomial's
+# shapes on the other paths that sample with it (random operands): the
+# sweeps' largest rows, the link-sharded, hybrid and trainer blocks, the
+# grid example's batch and the sharded grid's block
+HOT_OPS = {"main_steps": 100, "env_rl_steps": 50}
+BINOM_SHAPES = [(1536, 938), (512, 9800), LINK_BLOCK[::2], HYBRID_BLOCK[::2], (256, 168),
+                (128, 168), (16, 9800), (4, 54120)]
 
 def dryrun_blocks() -> dict:
     """The ring blocks of the dry run's stages at ``PARALLEL["dryrun_ranks"]``
@@ -545,6 +580,278 @@ def phase_kernel(card: str, scn) -> dict:
     return record
 
 
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
+# the hot-op kernels' sources and the XLA-fused JAX functions they replace
+# (not Pallas kernels)
+HOT_KERNELS = {
+    "turning_fractions": {"source": "pednstream_tpu_torch/csrc/routing.cu",
+                          "replaces": "pednstream_tpu/routing.py:405"},
+    "binom_fast": {"source": "pednstream_tpu_torch/csrc/binom.cu",
+                   "replaces": "pednstream_tpu/engine.py:109"}}
+# float operations per element of the fast binomial: the 16-term walk (an
+# add, a subtract and three multiplies per term, one add to the count, the
+# power counted as one) and the Gaussian branch
+BINOM_OPS_SMALL, BINOM_OPS_LARGE = 100, 8
+# float operations per turn entry outside the segment sums: the capacity
+# and density terms, the utility, XLA's exp polynomial, the share
+ROUTING_OPS_PER_ENTRY = 31
+
+
+@contextlib.contextmanager
+def captured(name: str, calls: list):
+    """Appends the arguments of every call of ``engine.<name>`` to ``calls``."""
+    import pednstream_tpu_torch.engine as engine
+
+    inner = getattr(engine, name)
+
+    def record(*args):
+        calls.append(args)
+        return inner(*args)
+
+    setattr(engine, name, record)
+    try:
+        yield
+    finally:
+        setattr(engine, name, inner)
+
+
+def binom_bound(nf, p, u, z) -> dict:
+    """The least time for one fast-binomial call on these operands: counts,
+    the sample and p's distinct values moved once, u only where n <= 16 and
+    z only where n > 16 (what this data needs); the walk's float work on the
+    small counts, the Gaussian's on the others."""
+    n = nf.numel()
+    small = int((nf <= 16).sum())
+    moved = 4 * (2 * n + small + (n - small) + p.numel())
+    ops = BINOM_OPS_SMALL * small + BINOM_OPS_LARGE * (n - small)
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bound_bytes": moved, "bound_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "small_n": small}
+
+
+def routing_bound(rt, M, dens, recv, cap, od) -> dict:
+    """The least time for one turning-fractions call: per replica the
+    density and receiving flow of each distinct routed down link, its
+    default capacity where the receiving flow is unset, and the od flow of
+    each distinct pair (once when shared); the tables once (entry and uo
+    tables, the valid member ids, the offsets, the guard's fallback); the
+    output.  Operations: the per-entry float work, one add per valid member
+    of each segment sum (the softmax groups twice), a division per uo
+    entry, the guard's few per slot."""
+    import torch
+
+    B, item = dens.shape[0], rt.dist_util.element_size()
+    links = torch.unique(rt.te_down_link[rt.te_down_link >= 0])
+    unset = int((recv[:, links] < 0).sum())
+    pairs = torch.unique(rt.uo_od).numel()
+    K, U = rt.num_entries, rt.uo_od.numel()
+    nnz = [int((m >= 0).sum()) for m in (rt.group_members, rt.uo_group_members,
+                                           rt.phi_c_members)]
+    slots = rt.num_routed * M * M
+    moved = (B * links.numel() * (4 + item) + unset * item
+             + pairs * item * (B if od.dim() == 2 else 1)
+             + K * (3 * 8 + item) + U * (2 * 8 + item) + 8 * sum(nnz)
+             + rt.node_offsets.numel() * 8 + slots * item + B * slots * item)
+    ops = B * (ROUTING_OPS_PER_ENTRY * K + 2 * nnz[0] + nnz[1] + nnz[2] + U + 4 * slots)
+    rate = FP32_OPS_PER_S if item == 4 else FP64_OPS_PER_S
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_bytes": moved, "bound_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit (``torch.equal`` takes -0.0 for +0.0)."""
+    import torch
+
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(view), b.contiguous().view(view)))
+
+
+def hold_hot_kernel(card, kernel, key, label, fn, plain, ops, bound, plain_iters) -> dict:
+    """One launch of ``fn`` against ``plain`` on the same CUDA operands,
+    bitwise, then the kernel's device and host time and the plain
+    version's beside ``bound``; prints and returns the case."""
+    import torch
+
+    counts = kernel_counts()[kernel]
+    before = dict(counts)
+    got = fn(*ops)
+    want = plain(*ops)
+    torch.cuda.synchronize()
+    if counts != {**before, key: before[key] + 1}:
+        raise AssertionError(f"{kernel} ({label}) did not launch its {key} kernel once")
+    err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+    if not bits_equal(got, want):
+        raise AssertionError(f"{kernel} kernel != plain ({label}): max abs err {err}")
+    case = {"device_ms": device_ms(lambda: fn(*ops)), "host_ms": host_us(lambda: fn(*ops)) / 1e3,
+            "plain_ms": cuda_ms(lambda: plain(*ops), iters=plain_iters, warmup=1), **bound}
+    emit("hot_kernel_vs_plain", kernel=kernel, dtype=key, operands=label, bitwise_equal=True,
+         max_abs_err=err, **case, share_of_bound=bound["bound_ms"] / case["device_ms"],
+         card=card)
+    return {"max_abs_err": err, "ms": case["device_ms"], **case, "library_ms": None,
+            "operands": label}
+
+
+def phase_hot_ops(card: str, scn) -> dict:
+    """Phase 3b: the hand kernels of the step's hot ops against their plain
+    versions, bitwise, at every path's shape and table form, with device
+    time against the bound; then the main path's stochastic rollout and the
+    env episode with the kernels and with the plain versions from one seed,
+    bitwise.  Returns the kernels line's record per (kernel, dtype)."""
+    import numpy as np
+    import torch
+    from pednstream_tpu_torch import (NetworkEnvGenerator, build_scenario, simulate_batched)
+    from pednstream_tpu_torch.env import PedNetParallelEnv
+    from pednstream_tpu_torch.golden import fixture_args
+    from pednstream_tpu_torch.ops import binom_fast, binom_fast_plain
+    from pednstream_tpu_torch.profiling import ZOO_PPO, plain_hot_ops
+    from pednstream_tpu_torch.randomize import randomize_engine_params_batched
+    from pednstream_tpu_torch.routing import turning_fractions_step, turning_fractions_step_plain
+
+    record = {}
+    rng = np.random.default_rng(SEED)
+
+    # the main path, kernels then plain versions from one seed; its last
+    # step's binomial and routing operands kept
+    finals, binom_calls, routing_calls = [], [], []
+    for plain in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        st = scn.init_state(MAIN["batch"])
+        reset_counts()
+        with plain_hot_ops() if plain else contextlib.nullcontext():
+            st = simulate_batched(scn, scn.engine_params, st, HOT_OPS["main_steps"] - 1, gen=g,
+                                  stochastic=True)
+            with captured("binom_fast", binom_calls), \
+                    captured("turning_fractions_step", routing_calls):
+                st = simulate_batched(scn, scn.engine_params, st, 1, gen=g, stochastic=True)
+        torch.cuda.synchronize()
+        hot = {n: dict(kernel_counts()[n]) for n in HotSteps.want}
+        if plain:
+            if any(v for counts in hot.values() for v in counts.values()):
+                raise AssertionError(f"the plain main path launched {hot}")
+        else:
+            check_hot("the main path with kernels")
+        finals.append(st)
+    bad = [n for n, x in vars(finals[0]).items()
+           if isinstance(x, torch.Tensor) and not bits_equal(x, getattr(finals[1], n))]
+    if bad or finals[0].t != finals[1].t:
+        raise AssertionError(f"main path with kernels != plain versions: {bad}")
+    emit("hot_main_path_bitwise", steps=HOT_OPS["main_steps"], batch=MAIN["batch"],
+         binomial_launches=3 * HOT_OPS["main_steps"], routing_launches=HOT_OPS["main_steps"],
+         bitwise_equal=True, card=card)
+
+    # the fast binomial: the main path's three call sites at its real
+    # operands, then random operands at the other paths' shapes
+    sites = ("release", "activity", "reverse occupancy")
+    if len(binom_calls) != 6:
+        raise AssertionError(f"{len(binom_calls)} binomial calls in two main-path steps")
+    for site, ops in zip(sites, binom_calls[:3]):
+        case = hold_hot_kernel(card, "binom_fast", "float32", f"main path {site}, real",
+                               binom_fast, binom_fast_plain, ops, binom_bound(*ops), 20)
+        if site == "release":
+            record[("binom_fast", "float32")] = case
+    for shape in BINOM_SHAPES:
+        n = rng.integers(0, 40, shape).astype(np.float32)
+        p = rng.uniform(0.5, 0.95, shape).astype(np.float32)
+        u = rng.uniform(0, 1, shape).astype(np.float32)
+        z = rng.standard_normal(shape).astype(np.float32)
+        ops = [torch.from_numpy(x).to("cuda") for x in (n, p, u, z)]
+        hold_hot_kernel(card, "binom_fast", "float32", f"random {shape}", binom_fast,
+                        binom_fast_plain, ops, binom_bound(*ops), 20)
+
+    # the routing kernel at the main path's real operands
+    (rt, M, *ops), = routing_calls[:1]
+    hold_hot_kernel(card, "turning_fractions", "float32", "main path, real",
+                    lambda *o: turning_fractions_step(rt, M, *o),
+                    lambda *o: turning_fractions_step_plain(rt, M, *o), ops,
+                    routing_bound(rt, M, *ops), 20)
+
+    # the env episode, kernels then plain versions from one seed; its last
+    # step's routing operands kept
+    env = PedNetParallelEnv(ENV["dataset"], od_randomize=True, device="cuda")
+    core, B = env.core, ENV["batch"]
+    runs, env_calls = [], []
+    for plain in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        eps = randomize_engine_params_batched(env.scn, g, B)
+        states, _ = core.batch_reset(B)
+        bounds = {a: [torch.as_tensor(x, device="cuda") for x in
+                      (env.action_space(a).low, env.action_space(a).high)]
+                  for a in env.possible_agents}
+        reset_counts()
+        with plain_hot_ops() if plain else contextlib.nullcontext():
+            for i in range(HOT_OPS["env_rl_steps"]):
+                acts = {a: lo + (hi - lo) * torch.rand((B,) + lo.shape, generator=g,
+                                                      device="cuda")
+                        for a, (lo, hi) in bounds.items()}
+                last = i == HOT_OPS["env_rl_steps"] - 1
+                with captured("turning_fractions_step", env_calls) if last and not plain \
+                        else contextlib.nullcontext():
+                    states, obs, rewards, _ = core.batch_step_randomized(states, acts, eps, g)
+        torch.cuda.synchronize()
+        if not plain:
+            check_hot("the env episode with kernels")
+        runs.append((states, obs, rewards))
+    (s0, o0, r0), (s1, o1, r1) = runs
+    bad = [n for n, x in vars(s0).items()
+           if isinstance(x, torch.Tensor) and not bits_equal(x, getattr(s1, n))]
+    bad += [f"obs {a}" for a in o0 if not bits_equal(o0[a], o1[a])]
+    bad += [f"reward {a}" for a in r0 if not bits_equal(r0[a], r1[a])]
+    if bad:
+        raise AssertionError(f"env episode with the routing kernel != plain: {bad}")
+    emit("hot_env_bitwise", rl_steps=HOT_OPS["env_rl_steps"], batch=B,
+         routing_launches=HOT_OPS["env_rl_steps"], bitwise_equal=True, card=card)
+    (rt, M, *ops), = env_calls
+    record[("turning_fractions", "float32")] = hold_hot_kernel(
+        card, "turning_fractions", "float32", "env, real (RL step 50)",
+        lambda *o: turning_fractions_step(rt, M, *o),
+        lambda *o: turning_fractions_step_plain(rt, M, *o), ops, routing_bound(rt, M, *ops), 5)
+
+    # every other table form at its path's batch, random operands: the env's
+    # with a shared od flow, the served melbourne, the trainers' env, the
+    # zoo pipeline's butterfly_scC, delft (examples), grid_50x50 (sweeps,
+    # window), the het float64 batch, a routed golden scenario (float64 one
+    # row per segment: the dense path's kernel)
+    gen = NetworkEnvGenerator()
+    butterfly = gen.scenario_args("butterfly_scC")
+    butterfly["params"]["seed"] = GPU_VS_CPU["demand_seed"]
+    golden, _, _ = fixture_args(ROOT / "tests" / "golden" / "grid10.npz")
+    tables = [("env, shared od", env.scn, B),
+              ("served melbourne", scn, 1),
+              ("trainer env", train_env().scn, ZOO_PPO["num_envs"]),
+              ("trainer env", None, SAC_TRAIN["num_envs"]),
+              ("butterfly_scC", build_scenario(**butterfly, device="cuda"), ZOO_TRAIN_SHAPE[0]),
+              ("butterfly_scC", None, 1),
+              ("delft", build_scenario(**gen.scenario_args("delft"), device="cuda"), 1),
+              ("grid_50x50", build_scenario(**gen.scenario_args("grid_50x50"), device="cuda"),
+               512),
+              ("grid_50x50", None, 1),
+              ("het butterfly_scC float64", build_scenario(
+                  **butterfly, ftype=torch.float64, exact_parity=True, device="cuda"), 6),
+              ("golden grid10 float64", build_scenario(
+                  **golden, ftype=torch.float64, exact_parity=True, device="cuda"), 1)]
+    last = None
+    for label, tscn, batch in tables:
+        tscn = tscn or last
+        last = tscn
+        rt, M, E = tscn.routing, tscn.max_deg, tscn.n_links
+        f = rt.dist_util.dtype
+        key = str(f).removeprefix("torch.")
+        dens = torch.from_numpy(rng.uniform(0, 6, (batch, E)).astype(np.float32)).to("cuda")
+        recv = torch.from_numpy(np.where(rng.uniform(size=(batch, E)) < 0.3, -1.0,
+                                         rng.integers(0, 40, (batch, E)))).to("cuda", f)
+        cap = torch.from_numpy(rng.uniform(5, 60, (batch, E))).to("cuda", f)
+        od = tscn.engine_params.od_table[:, tscn.engine_params.od_table.shape[1] // 3]
+        ops = [dens, recv, cap, od]
+        case = hold_hot_kernel(card, "turning_fractions", key, f"{label}, B={batch}, random",
+                               lambda *o: turning_fractions_step(rt, M, *o),
+                               lambda *o: turning_fractions_step_plain(rt, M, *o), ops,
+                               routing_bound(rt, M, *ops), 5)
+        if label.startswith("golden"):
+            record[("turning_fractions", key)] = case
+    return record
+
 def main_scenario():
     """The main path's scenario: melbourne, H=16, the fast binomial sampler
     (as bench.py's rows), on the card."""
@@ -585,6 +892,11 @@ def phase_main(card: str, scn) -> int:
     if launches != MAIN["steps"] or fused_history_reads.launches["float64"]:
         raise AssertionError(f"fused_history_reads launched {launches} times in "
                              f"{MAIN['steps']} steps")
+    hot = check_hot("main path")
+    if (hot["binom_fast"]["float32"], hot["turning_fractions"]["float32"]) != (
+            3 * MAIN["steps"], MAIN["steps"]):
+        raise AssertionError(f"main path: hot-op launches {hot}, expected three binomial "
+                             f"and one routing launch per step")
     if final.t != 1 + MAIN["steps"]:
         raise AssertionError(f"final t = {final.t}")
     check_state(final)
@@ -602,7 +914,7 @@ def phase_main(card: str, scn) -> int:
     emit("main_path", dataset=MAIN["dataset"], links=scn.n_links, nodes=scn.n_nodes,
          batch=MAIN["batch"], history_window=scn.H, steps=MAIN["steps"],
          seconds=seconds, env_steps_per_s=MAIN["steps"] * MAIN["batch"] / seconds,
-         kernel_launches=launches, mass_err=mass_err, mass_tol=tol,
+         kernel_launches=launches, hot_launches=hot, mass_err=mass_err, mass_tol=tol,
          total_arrivals=arrivals, card=card)
     return launches
 
@@ -627,6 +939,7 @@ def phase_gpu_vs_cpu(card: str) -> int:
                 "float32": GPU_VS_CPU["steps"] if device == "cuda" else 0}
         if launched != want:
             raise AssertionError(f"the {device} rollout launched {launched}, not {want}")
+        check_hot(f"the {device} rollout")
         density[device] = final.density.cpu()
     err = (density["cuda"] - density["cpu"]).abs().max().item()
     if not err <= GPU_VS_CPU["atol"]:
@@ -637,11 +950,102 @@ def phase_gpu_vs_cpu(card: str) -> int:
     return GPU_VS_CPU["steps"]
 
 
-def reset_counts() -> None:
-    from pednstream_tpu_torch.ops import fused_history_reads
+def kernel_counts() -> dict:
+    """The launch-count dict of each kernel wrapper, by kernel name."""
+    from pednstream_tpu_torch.ops import binom_fast, fused_history_reads, turning_fractions
 
-    for dtype in fused_history_reads.launches:
-        fused_history_reads.launches[dtype] = 0
+    return {"fused_history_reads": fused_history_reads.launches,
+            "turning_fractions": turning_fractions.launches, "binom_fast": binom_fast.launches}
+
+
+# the hot-op launches of the path being run: one entry per stretch since a
+# reset_counts(), the stretch's last check_hot reading (None before one)
+HOT_READINGS = [None]
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts and the steps' expected hot-op launches
+    set to 0; opens a new stretch of ``HOT_READINGS``."""
+    for counts in kernel_counts().values():
+        for key in counts:
+            counts[key] = 0
+    HotSteps.reset()
+    HOT_READINGS.append(None)
+
+
+class HotSteps:
+    """What the engine steps taken since the last ``reset_counts()`` should
+    have launched of the hot-op kernels, counted from the scenarios of the
+    steps, not from the kernels: one routing launch per step of a routed
+    scenario (under its tables' dtype); per stochastic step with the fast
+    sampler, one binomial launch for the release, one for the activity stay
+    unless the scenario decided it zero at build time, one for the reverse
+    occupancy.  ``install()`` wraps ``engine.step_fn`` and the modules that
+    import it by name; the steps of spawned ranks count in their own
+    process."""
+
+    lock = threading.Lock()
+    want = {"turning_fractions": {"float32": 0, "float64": 0}, "binom_fast": {"float32": 0}}
+    installed = False
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls.lock:
+            for counts in cls.want.values():
+                for key in counts:
+                    counts[key] = 0
+
+    @classmethod
+    def count(cls, scn, st, stochastic: bool) -> None:
+        if st.num_peds.device.type != "cuda":
+            return  # the wrappers run the plain versions on the CPU
+        with cls.lock:
+            if scn.routing is not None:
+                key = str(scn.routing.dist_util.dtype).removeprefix("torch.")
+                cls.want["turning_fractions"][key] += 1
+            if stochastic and scn.binomial_mode == "fast":
+                cls.want["binom_fast"]["float32"] += 2 if scn.act_statically_zero else 3
+
+    @classmethod
+    def install(cls) -> None:
+        if cls.installed:
+            return
+        import pednstream_tpu_torch
+        import pednstream_tpu_torch.engine as engine
+        import pednstream_tpu_torch.env.core as core
+        import pednstream_tpu_torch.network as network
+
+        inner = engine.step_fn
+
+        def counted(scn, ep, st, gen=None, stochastic=False, *args, **kwargs):
+            cls.count(scn, st, stochastic)
+            return inner(scn, ep, st, gen, stochastic, *args, **kwargs)
+
+        for module in (engine, core, network, pednstream_tpu_torch):
+            module.step_fn = counted
+        cls.installed = True
+
+
+# the hot-op launches of spawned ranks, per path: {path: {kernel: {key: n}}}
+RANK_HOT = {}
+
+
+def sum_hot(counts: list) -> dict:
+    """The sum of several ``check_hot`` readings."""
+    return {name: {key: sum(c[name][key] for c in counts) for key in keys}
+            for name, keys in HotSteps.want.items()}
+
+
+def check_hot(what: str) -> dict:
+    """The hot-op kernels launched as ``HotSteps`` expects since the counts
+    were set to 0; returns their launches."""
+    got = {name: dict(kernel_counts()[name]) for name in HotSteps.want}
+    with HotSteps.lock:
+        want = {name: dict(counts) for name, counts in HotSteps.want.items()}
+    if got != want:
+        raise AssertionError(f"{what}: hot-op launches {got}, the steps expect {want}")
+    HOT_READINGS[-1] = got
+    return got
 
 
 def phase_golden(card: str) -> int:
@@ -662,10 +1066,13 @@ def phase_golden(card: str) -> int:
         if launches != T - 1 or fused_history_reads.launches["float32"]:
             raise AssertionError(f"{path.stem}: the float64 kernel launched {launches} "
                                  f"times in {T - 1} steps")
+        hot = check_hot(path.stem)
         worst = max(errors.values())
         emit("golden", fixture=path.stem, links=scn.n_links, steps=T - 1,
              solve=scn.assign_flows_type, max_abs_err=worst, fields=len(errors),
-             float64_kernel_launches=launches, build_and_run_seconds=seconds, card=card)
+             float64_kernel_launches=launches,
+             routing_launches=hot["turning_fractions"]["float64"],
+             build_and_run_seconds=seconds, card=card)
         if errors.keys() != FIELDS.keys() or not worst <= TOL:
             raise AssertionError(f"{path.stem}: max abs err per field {errors} > {TOL}")
         total += launches
@@ -725,6 +1132,10 @@ def phase_env(card: str) -> int:
 
     if launches != steps or fused_history_reads.launches["float64"]:
         raise AssertionError(f"fused_history_reads launched {launches} times in {steps} steps")
+    hot = check_hot("env")
+    if hot["turning_fractions"]["float32"] != steps:
+        raise AssertionError(f"env: {hot['turning_fractions']} routing launches in {steps} "
+                             f"steps")
     for a in env.possible_agents:
         n_obs = env.observation_space(a).shape[0]
         if tuple(obs[a].shape) != (B, n_obs) or tuple(rewards[a].shape) != (B,):
@@ -749,7 +1160,8 @@ def phase_env(card: str) -> int:
     emit("env", dataset=ENV["dataset"], links=scn.n_links, batch=B, steps=steps,
          history=scn.H, binomial_mode=scn.binomial_mode, agents=env.possible_agents,
          seconds=seconds, env_steps_per_s=steps * B / seconds, kernel_launches=launches,
-         max_mass_err=mass_err.max().item(), total_arrivals=arrivals, card=card)
+         hot_launches=hot, max_mass_err=mass_err.max().item(), total_arrivals=arrivals,
+         card=card)
     return launches
 
 
@@ -868,6 +1280,7 @@ def phase_ppo_train(card: str, env) -> int:
     if launches != engine_steps or fused_history_reads.launches["float64"]:
         raise AssertionError(f"fused_history_reads launched {launches} times in "
                              f"{engine_steps} engine steps")
+    check_hot("ppo_train")
     for m in metrics:
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite metrics {m}")
@@ -921,10 +1334,12 @@ def phase_sac_train(card: str, env) -> int:
     if launches != engine_steps or fused_history_reads.launches["float64"]:
         raise AssertionError(f"fused_history_reads launched {launches} times in "
                              f"{engine_steps} engine steps")
+    check_hot("sac_train")
     updated = [m for m in metrics if m["buffer_size"] >= tr.warmup]
     if len(updated) < 2:
         raise AssertionError("fewer than two iterations ran updates")
-    for m in updated:
+    # before warm-up too: the losses of the unchanged parameters
+    for m in metrics:
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite metrics {m}")
     if torch.equal(before, flat_params([ts.params[aid]["actor"]])):
@@ -1021,12 +1436,16 @@ def checkpoint_card_vs_cpu(d) -> float:
 
 def check_launches(key: str, n: int, what: str) -> None:
     """The fused read launched ``n`` times under ``key`` and under no other
-    key since the counts were set to 0."""
+    key since the counts were set to 0, and the hot-op kernels as the steps
+    taken since then expect (``check_hot``): one routing launch per routed
+    step, three binomial launches per fast-binomial step (two where the
+    activity stay is decided zero)."""
     from pednstream_tpu_torch.ops import fused_history_reads
 
     want = {**dict.fromkeys(fused_history_reads.launches, 0), key: n}
     if fused_history_reads.launches != want:
         raise AssertionError(f"{what}: launches {fused_history_reads.launches}, expected {want}")
+    check_hot(what)
 
 
 def check_state(states) -> None:
@@ -1605,6 +2024,7 @@ def _card_setup():
     sys.path.insert(0, str(ROOT))
     if not torch.cuda.is_available():
         raise RuntimeError("a rank of the parallel phase found no CUDA card")
+    HotSteps.install()
     return torch
 
 
@@ -1681,6 +2101,7 @@ def link_rank(rank, world, device, mesh_shape, steps, ref_path):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(fused_history_reads.launches)
+    hot = check_hot(f"rank {rank}")
     peak = torch.cuda.max_memory_allocated()
     ring_bytes = MAIN["batch"] * scn.H * scn.n_links * 4
     n_coll, n_bad = par.assert_no_full_ring_collectives(mesh, ring_bytes)
@@ -1691,7 +2112,7 @@ def link_rank(rank, world, device, mesh_shape, steps, ref_path):
     worst = compare_block(final, ref, rows, mesh.block("link", scn.n_links))
     return {"rank": rank, "coords": mesh.coords, "backend": torch.distributed.get_backend(),
             "through_host": mesh.via_host, "host_trips": host_trips,
-            "block": tuple(final.cum_in_ring.shape), "launches": launches,
+            "block": tuple(final.cum_in_ring.shape), "launches": launches, "hot": hot,
             "seconds": seconds, "collectives": n_coll, "violations": n_bad,
             "record": record, "ring_bytes": ring_bytes,
             "state_bytes": state_bytes(final), "whole_state_bytes": whole_bytes,
@@ -1767,13 +2188,14 @@ def trainer_rank(rank, world, device, ref_path):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(fused_history_reads.launches)
+    hot = check_hot(f"trainer rank {rank}")
     ref = torch.load(ref_path, map_location=device, weights_only=False)
     worst = compare_block(ts.env_states, ref["state"], mesh.block("env", tr.B), slice(None))
     check_on_card("env_states", ts.env_states)
     check_on_card("params", ts.params)
     aid = ENV["agent"]
-    return {"rank": rank, "block": block, "launches": launches, "seconds": seconds,
-            "metrics": {k: float(v) for k, v in metrics.items()},
+    return {"rank": rank, "block": block, "launches": launches, "hot": hot,
+            "seconds": seconds, "metrics": {k: float(v) for k, v in metrics.items()},
             "params": flat_params([ts.params[aid], ts.value_params[aid]]).cpu(),
             "record": {k: list(v) for k, v in mesh.collectives.items()},
             "host_trips": mesh.host_trips, "state_max_abs_diff": max(worst.values()),
@@ -1809,6 +2231,7 @@ def phase_parallel(card: str, scn) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
+        reset_counts()
         t0 = time.perf_counter()
         mid = simulate_batched(scn, ep, states, hsteps, gen=g, stochastic=True)
         torch.cuda.synchronize()
@@ -1818,6 +2241,7 @@ def phase_parallel(card: str, scn) -> dict:
         torch.cuda.synchronize()
         unsharded_s = (time.perf_counter() - t1) / (steps - hsteps)
         peak = torch.cuda.max_memory_allocated()
+        check_launches("float32", steps, "the unsharded reference")
         check_state(final)
         torch.save(final.to("cpu"), f"{tmp}/ref_{steps}.pt")
         del states, mid, final
@@ -1857,6 +2281,11 @@ def phase_parallel(card: str, scn) -> dict:
                  held_bytes_before_run_per_rank=[r["held_bytes_before_run"] for r in ranks],
                  unsharded_peak_bytes=peak, card=card)
             launches[name] = sum(r["launches"]["float32"] for r in ranks)
+            RANK_HOT[name] = sum_hot([r["hot"] for r in ranks])
+            if RANK_HOT[name]["binom_fast"]["float32"] != 3 * n * world or RANK_HOT[name][
+                    "turning_fractions"]["float32"] != n * world:
+                raise AssertionError(f"{name}: hot-op launches {RANK_HOT[name]} over {world} "
+                                     f"ranks of {n} steps")
 
         # the data-parallel trainer against the unsharded one, same seed
         env, kw = parallel_trainer()
@@ -1871,8 +2300,7 @@ def phase_parallel(card: str, scn) -> dict:
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         engine_steps = tr.T * env.core.action_gap
-        if fused_history_reads.launches["float32"] != engine_steps:
-            raise AssertionError("the unsharded trainer's launches are off")
+        check_launches("float32", engine_steps, "the unsharded trainer")
         plain_params = flat_params([ts.params[aid], ts.value_params[aid]]).cpu()
         torch.save({"state": ts.env_states.to("cpu")}, f"{tmp}/ref_trainer.pt")
         world = PARALLEL["trainer_ranks"]
@@ -1911,6 +2339,7 @@ def phase_parallel(card: str, scn) -> dict:
              seconds_per_iteration=[r["seconds"] for r in ranks],
              unsharded_seconds_per_iteration=plain_s, metrics=r0["metrics"], card=card)
         launches["trainer"] = sum(r["launches"]["float32"] for r in ranks)
+        RANK_HOT["trainer"] = sum_hot([r["hot"] for r in ranks])
         del env, tr, ts
 
     # the five dry-run stages at 4 ranks
@@ -2359,6 +2788,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, compiled=info["built"],
          nvcc_seconds=info["seconds"], library=str(Path(info["path"]).relative_to(ROOT)),
          ptxas=[ln.strip() for ln in info["log"].splitlines() if "registers" in ln])
+    HotSteps.install()
 
     scn = main_scenario()
     from pednstream_tpu_torch.ops import PER_REPLICA_T
@@ -2397,62 +2827,101 @@ def main() -> int:
         # in one call; prints no result
         emit("kernel_only", record=phase_kernel(card, scn), card=card)
         return 0
+    if sys.argv[1:] == ["hot"]:
+        # phase 3b alone, to time the hot-op kernels; prints no result
+        emit("hot_only", record={"/".join(k): v for k, v in phase_hot_ops(card, scn).items()},
+             card=card)
+        return 0
     record = phase_kernel(card, scn)
+    t0 = time.perf_counter()
+    hot_record = phase_hot_ops(card, scn)
+    seconds = {"hot_ops": time.perf_counter() - t0}
+    # each path's launches of each hot-op kernel form: {(kernel, key): {path: n}}
+    hot = {}
+
+    def path(name, fn, *args):
+        # the path's hot-op launches: the sum of its stretches' readings,
+        # each counted from 0 just before the run it checks
+        HOT_READINGS[:] = [None]
+        out = fn(*args)
+        for kernel, keys in sum_hot([r for r in HOT_READINGS if r]).items():
+            for key, n in keys.items():
+                if n:
+                    hot.setdefault((kernel, key), {})[name] = n
+        return out
+
     # each path's launches of each form of the kernel, counted from 0
     t_main = time.perf_counter()
-    launches = {"float32": {"main": phase_main(card, scn),
-                            "gpu_vs_cpu": phase_gpu_vs_cpu(card)},
-                "float64": {"golden": phase_golden(card)}}
-    launches["float32"]["env"] = phase_env(card)
+    launches = {"float32": {"main": path("main", phase_main, card, scn),
+                            "gpu_vs_cpu": path("gpu_vs_cpu", phase_gpu_vs_cpu, card)},
+                "float64": {"golden": path("golden", phase_golden, card)}}
+    launches["float32"]["env"] = path("env", phase_env, card)
     env = train_env()
-    launches["float32"]["ppo_train"] = phase_ppo_train(card, env)
-    launches["float32"]["sac_train"] = phase_sac_train(card, env)
+    launches["float32"]["ppo_train"] = path("ppo_train", phase_ppo_train, card, env)
+    launches["float32"]["sac_train"] = path("sac_train", phase_sac_train, card, env)
     phase_zoo(card)
     del env
-    seconds = {"earlier_paths": time.perf_counter() - t_main}
+    seconds["earlier_paths"] = time.perf_counter() - t_main
     t0 = time.perf_counter()
-    for key, n in phase_hetero(card).items():
+    for key, n in path("hetero", phase_hetero, card).items():
         launches[key] = {"hetero": n}
     seconds["hetero"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches["float32"]["evaluate"] = phase_evaluate(card)
+    launches["float32"]["evaluate"] = path("evaluate", phase_evaluate, card)
     seconds["evaluate"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches["float32"]["mcp"] = phase_mcp(card)
+    launches["float32"]["mcp"] = path("mcp", phase_mcp, card)
     seconds["mcp"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for path, n in phase_parallel(card, scn).items():
-        launches["float32"]["parallel_" + path] = n
+    for name, n in path("parallel", phase_parallel, card, scn).items():
+        launches["float32"]["parallel_" + name] = n
+    for name, counts in RANK_HOT.items():
+        for kernel, keys in counts.items():
+            for key, n in keys.items():
+                if n:
+                    hot.setdefault((kernel, key), {})["parallel_" + name] = n
     seconds["parallel"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches["float32"]["zoo_cli"] = phase_zoo_cli(card)
+    launches["float32"]["zoo_cli"] = path("zoo_cli", phase_zoo_cli, card)
     seconds["zoo_cli"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="examples_") as saved_runs:
         t0 = time.perf_counter()
-        for name, n in phase_examples(card, saved_runs).items():
+        for name, n in path("examples", phase_examples, card, saved_runs).items():
             launches["float32"]["examples_" + name] = n
         seconds["examples"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        for name, n in phase_sweeps(card).items():
+        for name, n in path("sweeps", phase_sweeps, card).items():
             launches["float32"][name] = n
         seconds["sweeps"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        launches["float32"]["quantify_window"] = phase_window(card)
+        launches["float32"]["quantify_window"] = path("window", phase_window, card)
         seconds["window"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        for name, n in phase_scripts(card, saved_runs).items():
+        for name, n in path("scripts", phase_scripts, card, saved_runs).items():
             launches["float32"][name] = n
         seconds["scripts"] = time.perf_counter() - t0
     emit("seconds_per_path", **seconds, card=card)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_history_reads", "route": "cuda", "dtype": key.removesuffix(PER_REPLICA_T),
         "t": "per replica" if key.endswith(PER_REPLICA_T) else "shared",
         "source": "pednstream_tpu_torch/csrc/ncurve.cu",
         "replaces": "pednstream_tpu/ops/ncurve.py:180",
         "launches": sum(launches[key].values()), "launches_per_path": launches[key],
         **record[key],
-    } for key in launches]}), flush=True)
+    } for key in launches]
+    for (kernel, key), rec in hot_record.items():
+        per_path = hot.get((kernel, key), {})
+        kernels.append({"name": kernel, "route": "cuda", "dtype": key,
+                        "source": HOT_KERNELS[kernel]["source"],
+                        "replaces": HOT_KERNELS[kernel]["replaces"],
+                        "launches": sum(per_path.values()), "launches_per_path": per_path,
+                        **rec})
+    if not (hot.get(("binom_fast", "float32"), {}).get("main")
+            and hot.get(("turning_fractions", "float32"), {}).get("env")):
+        raise AssertionError(f"the main path's binomial or the env path's routing kernel "
+                             f"never launched: {hot}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,9 @@ phi, one round trip to the host per step.
 Stochastic steps draw from an explicit ``torch.Generator`` in a fixed order:
 release, activity (skipped when every link's activity probability is zero),
 reverse occupancy, speed noise.  ``binomial_mode="exact"`` draws with
-``torch.binomial``, ``"fast"`` with :func:`binom_fast`.  The JAX PRNG
+``torch.binomial``, ``"fast"`` with :func:`binom_fast` (``ops.binom``: a
+CUDA kernel on the card, its plain version on the CPU, fed the same
+uniforms and normals, so the stream is the same either way).  The JAX PRNG
 streams cannot be reproduced, so stochastic runs agree with the JAX engine
 in distribution only.
 
@@ -54,41 +56,13 @@ import torch
 
 from .fd import link_flow_kv, speed_from_density
 from .ops import fused_history_reads
+from .ops.binom import binom_fast
 from .ops.ncurve import reciprocal_f32
 from .routing import seq_sum, turning_fractions_dense, turning_fractions_step
 from .state import EngineParams, NetworkState, StepOutputs
 from .topology import FD_TYPES
 
 _f32 = torch.float32
-_FAST_BINOM_EXACT_N = 16
-
-
-def binom_fast(nf, p, u, z):
-    """The hybrid binomial sampler of ``pednstream_tpu.engine._binom``
-    (mode='fast') as a pure function of its random inputs.
-
-    ``nf`` holds whole non-negative trial counts, ``p`` the success
-    probabilities, ``u`` one uniform [0, 1) and ``z`` one standard normal
-    per element.  For n <= 16 the sample is the exact inverse CDF of u,
-    walking the pmf by its term recursion; above, it is the normal
-    approximation round(n p + sqrt(n p (1-p)) z) clipped to [0, n].
-    """
-    pc = torch.clamp(p, 0.0, 1.0)
-    q = 1.0 - pc
-    ratio = pc / torch.clamp(q, min=1e-12)
-    pmf = torch.pow(q, nf)  # P[X = 0]
-    cdf = pmf
-    cnt = torch.zeros_like(nf)
-    for k in range(_FAST_BINOM_EXACT_N):
-        # u >= P[X <= k]  =>  the sample exceeds k
-        cnt = cnt + ((u >= cdf) & (nf > k)).to(nf.dtype)
-        pmf = pmf * ((nf - k) / (k + 1.0)) * ratio
-        pmf = torch.where(nf >= k + 1.0, pmf, 0.0)
-        cdf = cdf + pmf
-    mu = nf * pc
-    sigma = torch.sqrt(torch.clamp(mu * (1.0 - pc), min=0.0))
-    gauss = torch.minimum(torch.clamp(torch.round(mu + sigma * z), min=0.0), nf)
-    return torch.where(nf <= _FAST_BINOM_EXACT_N, cnt, gauss)
 
 
 def draw(gen, normal: bool, shape, dtype, device) -> torch.Tensor:
@@ -107,7 +81,8 @@ def _binom(n, p, gen, stochastic: bool, mode: str = "exact"):
     mode returns the expectation floor(n) * p.  Stochastic mode draws from
     ``gen`` (see :func:`draw`): ``"exact"`` with ``torch.binomial`` on
     floor(n) trials, ``"fast"`` one uniform, then one normal per element for
-    :func:`binom_fast` (in float32, as the JAX sampler computes)."""
+    :func:`binom_fast` (in float32, as the JAX sampler computes): one kernel
+    launch on the card."""
     nf = torch.floor(torch.clamp(n, min=0.0))
     if not stochastic:
         return nf * p
@@ -470,13 +445,10 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
         S_all, density_all, recv_prev_all, cap_all = links.gather(
             S, shared_density, st.recv_prev, cap_default)
         od_flow_t = _column(ep.od_table, t)
+        phi_c = turning_fractions_step(
+            scn.routing, scn.max_deg, density_all, recv_prev_all, cap_all, od_flow_t)
         if dense:
-            phi = turning_fractions_dense(
-                scn.routing, scn.n_nodes, scn.max_deg, scn.node_arity, scn.slot_valid,
-                density_all, recv_prev_all, cap_all, od_flow_t, ep.phi_base)
-        else:
-            phi_c = turning_fractions_step(
-                scn.routing, scn.max_deg, density_all, recv_prev_all, cap_all, od_flow_t)
+            phi, phi_c = turning_fractions_dense(scn.routing, phi_c, ep.phi_base), None
     else:
         S_all, = links.gather(S)
         if dense:

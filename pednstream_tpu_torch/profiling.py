@@ -1,9 +1,9 @@
 """Where a step's time goes: the port's batched paths under
 ``torch.profiler``.
 
-    python -m pednstream_tpu_torch.profiling env [--binomial-mode fast]
+    python -m pednstream_tpu_torch.profiling env [--binomial-mode fast] [--with-plain]
     python -m pednstream_tpu_torch.profiling hetero
-    python -m pednstream_tpu_torch.profiling main
+    python -m pednstream_tpu_torch.profiling main [--with-plain]
     python -m pednstream_tpu_torch.profiling ppo
     python -m pednstream_tpu_torch.profiling served
 
@@ -26,6 +26,9 @@ one JSON line: wall ms per step (profiler off), device kernels and
 ``cudaLaunch*`` calls per step, kernel ms per step (the profiler's summed
 device self time), the device idle share ``1 - kernel / wall``, and the
 kernels with the most device time, each with its count and ms per step.
+``--with-plain`` adds the same numbers for the step with the two hot ops'
+plain versions in place of their kernels (:func:`plain_hot_ops`: the step
+as it was before them) and both timed in turns in the one process.
 On a CPU device there are no kernels; the counts read 0.
 
 ``ppo`` is ``chip_smoke.py``'s trainer path: ``BatchedPPOTrainer`` as
@@ -313,9 +316,32 @@ def ppo_profile(dataset: str, obs_mode: str, action_gap: int, history_window: in
     return out
 
 
-def run(path: str, device="cuda", **overrides) -> dict:
+@contextlib.contextmanager
+def plain_hot_ops():
+    """The engine step's two hot ops through their plain PyTorch versions
+    (``ops.binom_fast_plain``, ``routing.turning_fractions_step_plain``)
+    instead of their kernels while it is entered: the step as it ran before
+    the kernels, for a comparison in one process.  It swaps module
+    attributes, so no other thread may step meanwhile."""
+    from . import engine
+    from .ops import binom_fast_plain
+    from .routing import turning_fractions_step_plain
+
+    saved = (engine.binom_fast, engine.turning_fractions_step)
+    engine.binom_fast = binom_fast_plain
+    engine.turning_fractions_step = turning_fractions_step_plain
+    try:
+        yield
+    finally:
+        engine.binom_fast, engine.turning_fractions_step = saved
+
+
+def run(path: str, device="cuda", with_plain: bool = False, **overrides) -> dict:
     """Build ``path`` ("env", "hetero", "main", "served" or "ppo") with its defaults,
-    ``overrides`` applied, and profile it."""
+    ``overrides`` applied, and profile it.  ``with_plain`` (not ``ppo``)
+    profiles a second stepper of the same path with the hot ops' plain
+    versions (:func:`plain_hot_ops`) under ``"plain_hot_ops"``, and times the
+    two in turns (kernels, plain, plain, kernels)."""
     cfg = {**DEFAULTS[path], **overrides}
     if path == "ppo":
         return {"path": path, **cfg, "device": str(device), **ppo_profile(**cfg, device=device)}
@@ -325,6 +351,18 @@ def run(path: str, device="cuda", **overrides) -> dict:
                 history_window=cfg["history_window"], **extra)
     out = {"path": path, **cfg, "device": str(device),
            **profile(step, cfg["warm"], cfg["steps"], device)}
+    if with_plain:
+        other = make(cfg["dataset"], cfg["batch"], cfg["binomial_mode"], device,
+                     history_window=cfg["history_window"], **extra)
+
+        def plain():
+            with plain_hot_ops():
+                other()
+
+        out["plain_hot_ops"] = profile(plain, cfg["warm"], cfg["steps"], device)
+        out["wall_ms_per_step_in_turns"] = in_turns(
+            {"kernels": step, "plain": plain}, ("kernels", "plain", "plain", "kernels"),
+            cfg["steps"], device)
     if path == "hetero":
         # the same env in lockstep, in the same process and in turns: two
         # processes' host paces differ by more than the paths do
@@ -359,11 +397,15 @@ def main(argv=None) -> int:
     for key in ("batch", "warm", "steps"):
         ap.add_argument(f"--{key}", type=int)
     ap.add_argument("--binomial-mode", choices=("exact", "fast"))
+    ap.add_argument("--with-plain", action="store_true",
+                    help="also profile the hot ops' plain versions, and time both in turns")
     args = ap.parse_args(argv)
     if args.path == "ppo" and args.binomial_mode is not None:
         ap.error("--binomial-mode does not apply to ppo: the zoo env samples exactly")
+    if args.path == "ppo" and args.with_plain:
+        ap.error("--with-plain applies to the stepped paths, not ppo")
     overrides = {k: v for k, v in vars(args).items()
-                 if k not in ("path", "device") and v is not None}
+                 if k not in ("path", "device", "with_plain") and v is not None}
     card = None
     if torch.device(args.device).type == "cuda":
         if not torch.cuda.is_available():
@@ -372,8 +414,8 @@ def main(argv=None) -> int:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(json.dumps({**run(args.path, args.device, **overrides), "card": card}),
-          flush=True)
+    print(json.dumps({**run(args.path, args.device, args.with_plain, **overrides),
+                      "card": card}), flush=True)
     return 0
 
 

@@ -16,10 +16,10 @@ both packages' ``build_agents`` + ``load_all_agents`` load.
 Independent learners: every gate agent and every separator agent owns its
 actor/critic/alpha.  The ring pointer and fill are host integers (the
 batch writes B rows per step in lockstep), so warm-up is a host branch:
-before the ring holds ``warmup_transitions`` no update runs and the
-iteration's losses read NaN, meaning "not ready".  (The JAX trainer runs
-its scanned updates and masks them, so it logs the losses of the
-unchanged parameters instead; both leave the parameters as they were.)  Random draws come from the state's
+before the ring holds ``warmup_transitions`` the iteration's updates run on
+copies that are dropped, so the parameters and optimizer state stay as
+they were and the logged losses are those of the unchanged parameters, as
+the JAX trainer's masked updates log them.  Random draws come from the state's
 ``torch.Generator`` (the initial weights from a host generator of the
 same seed), so the JAX trainer's streams are matched in distribution
 only.
@@ -343,26 +343,31 @@ class BatchedSACTrainer:
     def _learn(self, ts: SACTrainerState, mean_r):
         """The update half of an iteration; returns ``ts`` and device-scalar
         metrics: ``reward``, ``buffer_size`` and, per agent, ``actor_loss``
-        and ``critic_loss`` (the means over the iteration's updates, NaN
-        before warm-up: no update ran) and ``alpha``."""
+        and ``critic_loss`` (the means over the iteration's updates) and
+        ``alpha``.  Every iteration evaluates its ``U`` updates on batches
+        drawn from the filled part of the ring, as the JAX trainer's scan
+        does; before the ring holds ``warmup_transitions`` each update runs
+        on a copy of the parameters and optimizer state, which is dropped
+        (JAX masks the update), so the losses are those of the unchanged
+        parameters."""
         ready = ts.size >= min(self.warmup, self.cap)
         metrics = {"reward": mean_r, "buffer_size": float(ts.size)}
-        nan = torch.full((), float("nan"), device=self.device)
         for aid in self.agents:
             p, opt, b = ts.params[aid], ts.opt_states[aid], ts.buffers[aid]
             a_losses, c_losses = [], []
-            for _ in range(self.U if ready else 0):
-                idx = torch.randint(0, ts.size, (self.batch_size,), generator=ts.gen,
+            for _ in range(self.U):
+                idx = torch.randint(0, max(ts.size, 1), (self.batch_size,), generator=ts.gen,
                                     device=self.device)
                 shape = (self.batch_size, self.agents[aid]["act_dim"])
                 noise = tuple(torch.randn(shape, generator=ts.gen, device=self.device)
                               for _ in range(2))
                 batch = tuple(b[k][idx] for k in ("s", "a", "r", "ns", "d"))
-                a_loss, c_loss = self._sac_update(aid, p, opt, batch, noise)
+                p_u, opt_u = (p, opt) if ready else copy.deepcopy((p, opt))
+                a_loss, c_loss = self._sac_update(aid, p_u, opt_u, batch, noise)
                 a_losses.append(a_loss)
                 c_losses.append(c_loss)
-            metrics[f"{aid}/actor_loss"] = torch.stack(a_losses).mean() if ready else nan
-            metrics[f"{aid}/critic_loss"] = torch.stack(c_losses).mean() if ready else nan
+            metrics[f"{aid}/actor_loss"] = torch.stack(a_losses).mean()
+            metrics[f"{aid}/critic_loss"] = torch.stack(c_losses).mean()
             metrics[f"{aid}/alpha"] = torch.exp(p["log_alpha"].detach())
         ts.iteration += 1
         return ts, metrics

@@ -16,6 +16,12 @@ product, so the sum is the JAX package's bit for bit (at one replica;
 ``GEMV_LANES``).  The order is static, so the sum is deterministic on the
 GPU, where ``index_add_``/``scatter_add_`` use float atomics whose order
 changes from run to run.
+
+On CUDA tensors :func:`turning_fractions_step` is one launch of the
+hand-written kernel of ``csrc/routing.cu`` (``ops.routing``), which walks
+the same tables in the same order, each routed node's ranges found through
+``RoutingTables.node_offsets``; :func:`turning_fractions_step_plain` is its
+plain version, which CPU tensors take.
 """
 
 from dataclasses import dataclass
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from .device import DEFAULT, resolve
+from .ops import turning_fractions
 from .state import _Tensors
 from .topology import TopologySpec
 
@@ -239,10 +246,16 @@ class RoutingTables(_Tensors):
     uo_inv_count: torch.Tensor  # [U] 1 / entries of the entry's group
     offdiag_uniform: torch.Tensor  # [NR, M, M] guard fallback 1/(arity-1)
 
+    # each routed node's first turn entry, softmax group, uo entry and
+    # (node, up) group (``NODE_TABLES`` order; row NR holds the totals):
+    # the kernel's block for a node reads only its own ranges
+    node_offsets: torch.Tensor  # [NR + 1, 4] int64
+
     num_groups: int
     num_uo_groups: int
     num_entries: int
     num_routed: int
+    node_max: Tuple[int, int, int, int]  # the most of each range a node holds
 
 
 
@@ -276,6 +289,22 @@ def _members(seg_ids: np.ndarray, num: int, lanes: int = 0) -> np.ndarray:
     for i, (s, q) in enumerate(zip(seg_ids, row)):
         out[s, q, fill[s, q]] = i
         fill[s, q] += 1
+    return out
+
+
+# the ranges of ``RoutingTables.node_offsets``' columns
+NODE_TABLES = ("entries", "groups", "uo_entries", "uo_groups")
+
+
+def _node_offsets(node_of: List[np.ndarray], num_routed: int) -> np.ndarray:
+    """``[NR + 1, len(node_of)]`` starts of each routed node's range in
+    each table, from the node of every row of the table.  The build emits
+    the rows node by node, so each range is contiguous; checked."""
+    out = np.zeros((num_routed + 1, len(node_of)), dtype=np.int64)
+    for j, nodes in enumerate(node_of):
+        if np.any(np.diff(nodes) < 0):
+            raise AssertionError(f"the {NODE_TABLES[j]} of a routed node are not contiguous")
+        out[:, j] = np.searchsorted(nodes, np.arange(num_routed + 1))
     return out
 
 
@@ -400,6 +429,15 @@ def build_routing_tables(
     inv = fd(1.0) / np.maximum(topo.node_arity[routed_ids].astype(fd) - fd(1.0), fd(1.0))
     offdiag_uniform = np.where(offdiag, inv[:, None, None], fd(0.0)).astype(fd)
 
+    te_node = te_phi_c // (M * M)
+    uo_node = np.zeros(len(uo_od_l), dtype=np.int64)
+    uo_node[np.array(te_uo_idx, dtype=np.int64)] = te_node
+    group_node = np.zeros(G, dtype=np.int64)
+    group_node[te_group] = te_node
+    uo_group_node = np.zeros(UG, dtype=np.int64)
+    uo_group_node[uo_group] = uo_node
+    node_offsets = _node_offsets([te_node, group_node, uo_node, uo_group_node], NR)
+
     lanes = 0 if exact_parity else GEMV_LANES[ftype]
     t = lambda a: torch.as_tensor(a, device=device)
     return RoutingTables(
@@ -425,10 +463,12 @@ def build_routing_tables(
         dist_util=t(dist_util),
         uo_inv_count=t(uo_inv_count),
         offdiag_uniform=t(offdiag_uniform),
+        node_offsets=t(node_offsets),
         num_groups=G,
         num_uo_groups=UG,
         num_entries=len(te_rows),
         num_routed=NR,
+        node_max=tuple(int(x) for x in np.diff(node_offsets, axis=0).max(axis=0)),
     )
 
 
@@ -521,6 +561,33 @@ def _turn_contributions(rt: RoutingTables, density_for_routing, recv_prev, cap_d
     return p_turn * p_uo[..., rt.te_uo_idx]
 
 
+def turning_fractions_step_plain(
+    rt: RoutingTables,
+    max_deg: int,
+    density_for_routing: torch.Tensor,  # [B, E] link.get_density(t-1), f32
+    recv_prev: torch.Tensor,  # [B, E] receiving_flow[t-2], -1 sentinel if unset
+    cap_default: torch.Tensor,  # [B, E] back_gate * k_c * v_f * dt
+    od_flow_t: torch.Tensor,  # [P] or [B, P] od flows at time t
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`turning_fractions_step`, on any
+    device: :func:`_turn_contributions`, the phi segment sum and the row
+    guard as eager ops, each segment sum one padded column at a time."""
+    M = max_deg
+    contrib = _turn_contributions(rt, density_for_routing, recv_prev, cap_default,
+                                  od_flow_t)
+    B = contrib.shape[0]
+    phi = segment_sum(contrib, rt.phi_c_members).reshape(B, rt.num_routed, M, M)
+
+    # row-normalization guard (check_fractions, path_finder.py:691-715);
+    # XLA reduces the short slot axis left to right
+    rowsum = seq_sum(phi, -1).unsqueeze(-1)
+    need_fix = torch.abs(rowsum - 1.0) > 1e-3
+    pos = rowsum > 1e-6
+    phi_norm = phi / torch.where(pos, rowsum, 1.0)
+    return torch.where(need_fix & pos, phi_norm,
+                       torch.where(need_fix & ~pos, rt.offdiag_uniform, phi))
+
+
 def turning_fractions_step(
     rt: RoutingTables,
     max_deg: int,
@@ -539,33 +606,25 @@ def turning_fractions_step(
     (path_finder.py:561-715).
     The caller (``engine._node_solve``) re-solves just these rows; the
     other nodes keep ``phi_base``.
-    """
-    M = max_deg
-    contrib = _turn_contributions(rt, density_for_routing, recv_prev, cap_default,
-                                  od_flow_t)
-    B = contrib.shape[0]
-    phi = segment_sum(contrib, rt.phi_c_members).reshape(B, rt.num_routed, M, M)
 
-    # row-normalization guard (check_fractions, path_finder.py:691-715);
-    # XLA reduces the short slot axis left to right
-    rowsum = seq_sum(phi, -1).unsqueeze(-1)
-    need_fix = torch.abs(rowsum - 1.0) > 1e-3
-    pos = rowsum > 1e-6
-    phi_norm = phi / torch.where(pos, rowsum, 1.0)
-    return torch.where(need_fix & pos, phi_norm,
-                       torch.where(need_fix & ~pos, rt.offdiag_uniform, phi))
+    On CUDA tensors this is one launch of the kernel of
+    ``csrc/routing.cu`` (``ops.turning_fractions``); on CPU tensors it is
+    :func:`turning_fractions_step_plain`.  Both give the same bits.  Any
+    other device raises.
+    """
+    dev = density_for_routing.device.type
+    if dev == "cuda":
+        return turning_fractions(rt, max_deg, density_for_routing, recv_prev, cap_default,
+                                 od_flow_t)
+    if dev == "cpu":
+        return turning_fractions_step_plain(rt, max_deg, density_for_routing, recv_prev,
+                                            cap_default, od_flow_t)
+    raise ValueError(f"turning_fractions_step has no kernel for device {dev!r}")
 
 
 def turning_fractions_dense(
     rt: RoutingTables,
-    n_nodes: int,
-    max_deg: int,
-    node_arity: torch.Tensor,  # [N]
-    slot_valid: torch.Tensor,  # [N, M]
-    density_for_routing: torch.Tensor,  # [B, E] f32
-    recv_prev: torch.Tensor,  # [B, E] in the flow dtype, -1 sentinel if unset
-    cap_default: torch.Tensor,  # [B, E] in the flow dtype
-    od_flow_t: torch.Tensor,  # [P] or [B, P]
+    phi_c: torch.Tensor,  # [B, NR, M, M] turning_fractions_step's rows
     phi_base: torch.Tensor,  # [N, M, M] or [B, N, M, M] in the flow dtype
 ) -> torch.Tensor:
     """Dense turning fractions ``phi[B, N, M, M]`` in the dtype of
@@ -573,29 +632,15 @@ def turning_fractions_dense(
     turning_fractions_step`` (``exact=True``), which the exact-parity mode
     and the ``"optimal"`` solve take.
 
-    Every sum is added left to right in the reference's order: the
-    segment sums in entry order, the guard's row sums along the slots.
-    The guard runs over all nodes; the non-routed ones then keep
-    ``phi_base``.
+    The JAX exact path sums every phi slot and guards every node, then
+    keeps ``phi_base`` wherever a node is not routed.  A routed node's rows
+    are the compact ones (the same segment sums, the same guard with the
+    node's own slots and arity, ``offdiag_uniform``), so the caller computes
+    them with :func:`turning_fractions_step` and they are placed here at
+    ``routed_ids``.  Every sum is added left to right in the reference's
+    order on the exact-parity tables (``Q = 1``).
     """
-    f = phi_base.dtype
-    N, M = n_nodes, max_deg
-    contrib = _turn_contributions(rt, density_for_routing, recv_prev, cap_default,
-                                  od_flow_t)
-    B = contrib.shape[0]
-    phi = torch.zeros((B, N, M, M), dtype=f, device=contrib.device)
-    phi[:, rt.routed_ids] = segment_sum(contrib, rt.phi_c_members).reshape(
-        B, rt.num_routed, M, M)
-
-    # row-normalization guard (check_fractions, path_finder.py:691-715)
-    eye = torch.eye(M, dtype=torch.bool, device=phi.device)
-    offdiag_valid = slot_valid[:, :, None] & slot_valid[:, None, :] & ~eye
-    inv = 1.0 / torch.clamp(node_arity.to(f) - 1.0, min=1.0)
-    uniform = torch.where(offdiag_valid, inv[:, None, None], 0.0)
-    rowsum = seq_sum(phi, -1).unsqueeze(-1)
-    need_fix = torch.abs(rowsum - 1.0) > 1e-3
-    pos = rowsum > 1e-6
-    phi_norm = phi / torch.where(pos, rowsum, 1.0)
-    fixed = torch.where(need_fix & pos, phi_norm,
-                        torch.where(need_fix & ~pos, uniform, phi))
-    return torch.where(rt.routed_mask[:, None, None], fixed, phi_base)
+    B, _, M, _ = phi_c.shape
+    phi = phi_base.expand(B, phi_base.shape[-3], M, M).clone()
+    phi[:, rt.routed_ids] = phi_c.to(phi_base.dtype)
+    return phi

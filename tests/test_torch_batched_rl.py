@@ -10,6 +10,7 @@ episode boundary.  BatchedSACTrainer: ``_rms_update`` and ``_sac_update``
 ring wrapping, and ``export`` loading through both packages'
 ``build_agents`` + ``load_all_agents``."""
 
+import copy
 from functools import partial
 
 import numpy as np
@@ -249,20 +250,58 @@ def sac_trained(env):
                            randomize=True, randomize_fraction=0.5, max_delta=4.0)
     ts = tr.init(seed=0)
     actor0 = _flat([ts.params[AID]["actor"]])
-    metrics = []
-    for _ in range(5):
+    # the first iteration in its two halves, keeping what its update half
+    # starts from and what it leaves
+    mean_r = tr._collect(ts)
+    start = copy.deepcopy({"params": ts.params, "opt": ts.opt_states, "buffers": ts.buffers,
+                           "gen": ts.gen.get_state(), "size": ts.size})
+    ts, m = tr._learn(ts, mean_r)
+    first = copy.deepcopy({"params": ts.params, "opt": ts.opt_states})
+    metrics = [{k: float(v) for k, v in m.items()}]
+    for _ in range(4):
         ts, m = tr.train_iteration(ts)
         metrics.append(m)
-    return tr, ts, metrics, actor0
+    return tr, ts, metrics, actor0, start, first
+
+
+def _leaves(params, opt):
+    """Every parameter and optimizer-state tensor of one agent."""
+    out = [x for name in ("actor", "critic", "target") for x in params[name].state_dict().values()]
+    out.append(params["log_alpha"].detach())
+    for state in opt.values():
+        out += [state.count, *state.mu, *state.nu]
+    return out
 
 
 def test_sac_iterations_past_warmup(sac_trained):
-    """No update before the ring holds warmup_transitions, finite metrics
-    and moving parameters after; the ring wraps.  Before warm-up the port
-    reports NaN losses ("not ready") where the JAX trainer, which runs
-    its updates masked, reports the losses of the unchanged parameters."""
-    tr, ts, metrics, actor0 = sac_trained
-    assert np.isnan(metrics[0][f"{AID}/actor_loss"]) and metrics[0]["buffer_size"] == 32
+    """Before the ring holds warmup_transitions, an iteration reports the
+    finite losses of its updates evaluated on the unchanged parameters
+    (as the JAX trainer's masked updates do) and leaves the parameters and
+    optimizer state bit for bit as they were; after it, finite metrics and
+    moving parameters; the ring wraps."""
+    tr, ts, metrics, actor0, start, first = sac_trained
+    assert metrics[0]["buffer_size"] == 32 < tr.warmup
+    assert all(np.isfinite(v) for v in metrics[0].values()), metrics[0]
+    for aid in tr.agents:
+        for a, b in zip(_leaves(start["params"][aid], start["opt"][aid]),
+                        _leaves(first["params"][aid], first["opt"][aid]), strict=True):
+            assert torch.equal(a, b)
+    # the reported losses are those of the unchanged parameters on the
+    # batches and noises the iteration drew
+    gen = torch.Generator()
+    gen.set_state(start["gen"])
+    for aid in tr.agents:
+        losses = []
+        for _ in range(tr.U):
+            idx = torch.randint(0, start["size"], (tr.batch_size,), generator=gen)
+            shape = (tr.batch_size, tr.agents[aid]["act_dim"])
+            noise = tuple(torch.randn(shape, generator=gen) for _ in range(2))
+            batch = tuple(start["buffers"][aid][k][idx] for k in ("s", "a", "r", "ns", "d"))
+            p, opt = copy.deepcopy((start["params"][aid], start["opt"][aid]))
+            losses.append(tr._sac_update(aid, p, opt, batch, noise))
+        a_loss, c_loss = (float(torch.stack(x).mean()) for x in zip(*losses))
+        assert metrics[0][f"{aid}/actor_loss"] == a_loss
+        assert metrics[0][f"{aid}/critic_loss"] == c_loss
     for m in metrics[1:]:
         assert all(np.isfinite(v) for v in m.values()), m
     assert not torch.equal(actor0, _flat([ts.params[AID]["actor"]]))
@@ -282,7 +321,7 @@ def test_sac_export_loads_in_both_packages(env, sac_trained, tmp_path):
     from pednstream_tpu_torch.rl.rl_utils import RunningNormalizeWrapper, load_all_agents
     from pednstream_tpu_torch.rl.train import build_agents
 
-    tr, ts, _, _ = sac_trained
+    tr, ts, *_ = sac_trained
     tr.export(ts, str(tmp_path), extra={"val_reward": -1.0})
     wrapped = RunningNormalizeWrapper(env)
     agents = load_all_agents(build_agents(wrapped, algo="sac", device="cpu"), str(tmp_path),

@@ -8,7 +8,11 @@ CPU, a golden fixture in exact-parity mode, a short randomized env
 episode, the network families on the card against the CPU, one batched
 PPO iteration, the service layer (the MCP workflow, and two
 simulations stepped from two threads), and a link-sharded rollout over two
-ranks that share the card.  Every test here needs a GPU, skips without one (decided in
+ranks that share the card; the kernels of the step's hot ops -- the fast
+binomial and the routed turning fractions -- bitwise to their plain versions
+at every path's shape and table form, and a stochastic main-path rollout
+and an env episode bitwise equal with the kernels and with the plain
+versions from one seed.  Every test here needs a GPU, skips without one (decided in
 the ``cuda`` fixture), and is marked ``slow``, so the default tiers leave it
 out.  The file imports no JAX (nor does it need tests/conftest.py), so on
 a machine with a card it runs as
@@ -16,6 +20,7 @@ a machine with a card it runs as
     python -m pytest --noconftest -p no:cacheprovider -m slow tests/test_torch_cuda.py
 """
 
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -23,10 +28,13 @@ import pytest
 import torch
 
 from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, concat_states, simulate
+from pednstream_tpu_torch import routing as _routing
 from pednstream_tpu_torch.env import PedNetParallelEnv
 from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
-from pednstream_tpu_torch.ops import (PER_REPLICA_T, fused_history_reads,
-                                      fused_history_reads_plain)
+from pednstream_tpu_torch.ops import (PER_REPLICA_T, binom_fast, binom_fast_plain,
+                                      fused_history_reads, fused_history_reads_plain,
+                                      turning_fractions)
+from pednstream_tpu_torch.profiling import plain_hot_ops
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
 
 pytestmark = pytest.mark.slow
@@ -575,3 +583,172 @@ def test_entry_on_cuda(cuda):
     assert got.t == want.t == 2 and got.num_peds.device.type == "cuda"
     for f in ("num_peds", "cum_in", "cum_out", "avg_tt", "cum_in_ring"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# --- the hand kernels of the step's hot ops: the fast binomial (csrc/binom.cu)
+# and the routed turning fractions (csrc/routing.cu), each bitwise to its
+# plain version on the same CUDA operands
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def assert_bits_equal(a, b):
+    """Equal bit for bit (``torch.equal`` takes -0.0 for +0.0)."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.contiguous().view(_BITS[a.dtype]), b.contiguous().view(_BITS[b.dtype]))
+
+
+def binom_operands(shape, p_shape, seed, device):
+    """Trial counts 0-40 (a tenth at n = 0, 1, 16, 17), probabilities with
+    p = 0, 1 and p near 1 (subnormal pmf terms), uniforms and normals."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, 40, shape).astype(np.float32)
+    flat = n.reshape(-1)
+    flat[: flat.size // 10] = np.resize(np.array([0, 1, 16, 17], np.float32), flat.size // 10)
+    p = rng.uniform(0.0, 1.0, p_shape).astype(np.float32)
+    pf = p.reshape(-1)
+    if pf.size > 4:
+        pf[:2], pf[2:4] = 0.0, 1.0
+        pf[4: 4 + pf.size // 8] = 1.0 - rng.uniform(0, 0.01, pf.size // 8)
+    u = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    z = rng.standard_normal(shape).astype(np.float32)
+    return [torch.from_numpy(x).to(device) for x in (n, p, u, z)]
+
+
+@pytest.mark.parametrize("shape,p_shape", [
+    ((1024, 938), (1024, 938)),  # the main path: releasing probability per replica
+    ((1024, 938), (938,)),  # the activity probability per link
+    ((1024, 938), ()),  # the reverse-occupancy scalar
+    ((256, 168), (256, 168))])  # the env's links
+def test_binom_kernel_equals_plain_bitwise(cuda, shape, p_shape):
+    ops_ = binom_operands(shape, p_shape, 3, cuda)
+    before = binom_fast.launches["float32"]
+    got = binom_fast(*ops_)
+    want = binom_fast_plain(*ops_)
+    torch.cuda.synchronize()
+    assert binom_fast.launches["float32"] == before + 1
+    assert_bits_equal(got, want)
+    assert bool((got[ops_[0] <= 16] > 0).any())
+
+
+def test_binom_kernel_rejects_another_broadcast(cuda):
+    """A p that does not repeat as a trailing block raises: no copy."""
+    with pytest.raises(ValueError, match="trailing block"):
+        binom_fast(*binom_operands((7, 33), (7, 1), 3, cuda))
+
+
+def routing_scenarios(device):
+    """Every form of the routing tables a path builds: the env's
+    OD-candidate tables (float32 GEMV lanes), melbourne's (the main path,
+    4 entries), delft's in float32, float64 and exact parity, and a routed
+    golden scenario in exact parity (float64, one row per segment)."""
+    from pednstream_tpu_torch.golden import fixture_args
+
+    gen = NetworkEnvGenerator()
+    out = {"env": (PedNetParallelEnv("45_intersections", od_randomize=True, seed=0,
+                                     device=device).scn, 256),
+           "melbourne": (build_scenario(**gen.scenario_args("melbourne"), device=device), 1024)}
+    for name, kw in (("delft_f32", {}), ("delft_f64", {"ftype": torch.float64}),
+                     ("delft_exact", {"ftype": torch.float64, "exact_parity": True})):
+        out[name] = (build_scenario(**gen.scenario_args("delft"), **kw, device=device), 16)
+    args, _, _ = fixture_args(Path(__file__).parent / "golden" / "grid10.npz")
+    out["grid10_exact"] = (build_scenario(**args, ftype=torch.float64, exact_parity=True,
+                                          device=device), 1)
+    return out
+
+
+def routing_operands(scn, B, seed, per_replica_od, device):
+    rng = np.random.default_rng(seed)
+    E, f = scn.n_links, scn.routing.dist_util.dtype
+    dens = torch.from_numpy(rng.uniform(0, 6, (B, E)).astype(np.float32)).to(device)
+    recv = torch.from_numpy(np.where(rng.uniform(size=(B, E)) < 0.3, -1.0,
+                                     rng.integers(0, 40, (B, E)))).to(device, f)
+    cap = torch.from_numpy(rng.uniform(5, 60, (B, E))).to(device, f)
+    od = scn.engine_params.od_table[:, scn.engine_params.od_table.shape[1] // 3]
+    if per_replica_od:
+        scale = torch.from_numpy(rng.uniform(0.0, 2.0, (B, 1))).to(device, od.dtype)
+        scale[0] = 0.0
+        od = od[None] * scale
+    return dens, recv, cap, od
+
+
+@pytest.fixture(scope="module")
+def routed_scenarios():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return routing_scenarios("cuda")
+
+
+@pytest.mark.parametrize("name", ["env", "melbourne", "delft_f32", "delft_f64", "delft_exact",
+                                  "grid10_exact"])
+@pytest.mark.parametrize("per_replica_od", [False, True])
+def test_routing_kernel_equals_plain_bitwise(cuda, routed_scenarios, name, per_replica_od):
+    scn, B = routed_scenarios[name]
+    rt, M = scn.routing, scn.max_deg
+    ops_ = routing_operands(scn, B, 5, per_replica_od, cuda)
+    key = str(rt.dist_util.dtype).removeprefix("torch.")
+    before = turning_fractions.launches[key]
+    got = _routing.turning_fractions_step(rt, M, *ops_)
+    want = _routing.turning_fractions_step_plain(rt, M, *ops_)
+    torch.cuda.synchronize()
+    assert turning_fractions.launches[key] == before + 1
+    assert_bits_equal(got, want)
+
+
+def test_stochastic_main_path_bitwise_with_kernels_and_plain(cuda):
+    """melbourne, 1024 replicas, H=16, the fast sampler, 100 stochastic steps
+    from one seed: with the kernels (3 binomial and 1 routing launch per
+    step) and with the plain versions, every state leaf bit for bit."""
+    scn = build_scenario(**NetworkEnvGenerator().scenario_args("melbourne"),
+                         history_window=16, binomial_mode="fast", device=cuda)
+    finals = []
+    for plain in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        counts = (binom_fast.launches["float32"], turning_fractions.launches["float32"])
+        if plain:
+            with plain_hot_ops():
+                final, _ = simulate(scn, scn.engine_params, scn.init_state(1024), 100, gen=gen,
+                                    stochastic=True, record=False)
+        else:
+            final, _ = simulate(scn, scn.engine_params, scn.init_state(1024), 100, gen=gen,
+                                stochastic=True, record=False)
+        n_binom = 2 if scn.act_statically_zero else 3
+        assert (binom_fast.launches["float32"] - counts[0],
+                turning_fractions.launches["float32"] - counts[1]) == (
+            (0, 0) if plain else (n_binom * 100, 100))
+        finals.append(final)
+    for name, x in vars(finals[0]).items():
+        if isinstance(x, torch.Tensor):
+            assert_bits_equal(x, getattr(finals[1], name))
+
+
+def test_env_episode_bitwise_with_kernels_and_plain(cuda):
+    """45_intersections with OD randomization, 256 replicas with randomized
+    worlds, 50 RL steps under random actions from one seed: with the routing
+    kernel and with its plain version, states, observations and rewards bit
+    for bit."""
+    env = PedNetParallelEnv("45_intersections", od_randomize=True, seed=0, device=cuda)
+    core, B = env.core, 256
+    runs = []
+    for plain in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        eps = randomize_engine_params_batched(env.scn, gen, B)
+        states, _ = core.batch_reset(B)
+        bounds = {a: [torch.as_tensor(x, device=cuda) for x in
+                      (env.action_space(a).low, env.action_space(a).high)]
+                  for a in env.possible_agents}
+        before = turning_fractions.launches["float32"]
+        with plain_hot_ops() if plain else nullcontext():
+            for _ in range(50):
+                acts = {a: lo + (hi - lo) * torch.rand((B,) + lo.shape, generator=gen,
+                                                      device=cuda)
+                        for a, (lo, hi) in bounds.items()}
+                states, obs, rewards, _ = core.batch_step_randomized(states, acts, eps, gen)
+        assert turning_fractions.launches["float32"] - before == (0 if plain else 50)
+        runs.append((states, obs, rewards))
+    (s0, o0, r0), (s1, o1, r1) = runs
+    for name, x in vars(s0).items():
+        if isinstance(x, torch.Tensor):
+            assert_bits_equal(x, getattr(s1, name))
+    for a in env.possible_agents:
+        assert_bits_equal(o0[a], o1[a])
+        assert_bits_equal(r0[a], r1[a])
