@@ -47,6 +47,11 @@ indexes the last axes only.
 ``step_fn`` updates the ring buffers of the state it is given in place
 (``ring[:, t % H] = x``, a ``scatter_`` for a per-replica ``t``): the state it returns shares them, and the old
 state must not be stepped again.
+A step runs under the span ``engine.step`` and each of its numbered
+phases under its own (``engine.history``, ``engine.sending``,
+``engine.routing``, ``engine.receiving``, ``engine.node_solve``,
+``engine.link_update``; :mod:`.tracing`), which a running profiler's
+trace shows and which cost one flag check each otherwise.
 """
 
 from typing import Optional, Tuple
@@ -61,6 +66,7 @@ from .ops.ncurve import reciprocal_f32
 from .routing import seq_sum, turning_fractions_dense, turning_fractions_step
 from .state import EngineParams, NetworkState, StepOutputs
 from .topology import FD_TYPES
+from .tracing import span
 
 _f32 = torch.float32
 
@@ -424,77 +430,86 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
     """
     if stochastic and gen is None:
         raise ValueError("a stochastic step needs a torch.Generator")
-    t = st.t
-    H = scn.H
-    # against per-link values a per-replica t stands as [B, 1]
-    t_link = t.unsqueeze(1) if isinstance(t, torch.Tensor) else t
-    # 0) the three ring lookbacks in one fused kernel pass
-    hist = _history(scn, ep, st, t)
+    with span("engine.step"):
+        t = st.t
+        H = scn.H
+        # 0) the three ring lookbacks in one fused kernel pass
+        with span("engine.history"):
+            hist = _history(scn, ep, st, t)
 
-    # 1) sending flows from state t-1
-    num_peds_all, gate_all = links.gather(st.num_peds, st.back_gate)
-    S, shared_density = _sending_flows(scn, ep, st, t_link, hist, num_peds_all, gate_all,
-                                       gen, stochastic)
+        # 1) sending flows from state t-1
+        with span("engine.sending"):
+            # against per-link values a per-replica t stands as [B, 1]
+            t_link = t.unsqueeze(1) if isinstance(t, torch.Tensor) else t
+            num_peds_all, gate_all = links.gather(st.num_peds, st.back_gate)
+            S, shared_density = _sending_flows(scn, ep, st, t_link, hist, num_peds_all,
+                                               gate_all, gen, stochastic)
 
-    # 2) dynamic turning fractions (path_finder.py:717-737): dense for the
-    #    exact and "optimal" solves, else compact over the routed nodes
-    phi_c = phi = None
-    dense = scn.exact_parity or scn.assign_flows_type == "optimal"
-    if scn.routing is not None:
-        cap_default = st.back_gate * ep.k_critical * ep.free_flow_speed * scn.unit_time
-        S_all, density_all, recv_prev_all, cap_all = links.gather(
-            S, shared_density, st.recv_prev, cap_default)
-        od_flow_t = _column(ep.od_table, t)
-        phi_c = turning_fractions_step(
-            scn.routing, scn.max_deg, density_all, recv_prev_all, cap_all, od_flow_t)
-        if dense:
-            phi, phi_c = turning_fractions_dense(scn.routing, phi_c, ep.phi_base), None
-    else:
-        S_all, = links.gather(S)
-        if dense:
-            phi = ep.phi_base
+        # 2) dynamic turning fractions (path_finder.py:717-737): dense for the
+        #    exact and "optimal" solves, else compact over the routed nodes
+        with span("engine.routing"):
+            phi_c = phi = None
+            dense = scn.exact_parity or scn.assign_flows_type == "optimal"
+            if scn.routing is not None:
+                cap_default = st.back_gate * ep.k_critical * ep.free_flow_speed * scn.unit_time
+                S_all, density_all, recv_prev_all, cap_all = links.gather(
+                    S, shared_density, st.recv_prev, cap_default)
+                od_flow_t = _column(ep.od_table, t)
+                phi_c = turning_fractions_step(
+                    scn.routing, scn.max_deg, density_all, recv_prev_all, cap_all, od_flow_t)
+                if dense:
+                    phi, phi_c = turning_fractions_dense(scn.routing, phi_c, ep.phi_base), None
+            else:
+                S_all, = links.gather(S)
+                if dense:
+                    phi = ep.phi_base
 
-    # 3) receiving flows (need S of the reverse links)
-    R = _receiving_flows(scn, ep, st, t_link, hist, num_peds_all, S_all, gen, stochastic)
+        # 3) receiving flows (need S of the reverse links)
+        with span("engine.receiving"):
+            R = _receiving_flows(scn, ep, st, t_link, hist, num_peds_all, S_all, gen,
+                                 stochastic)
 
-    # 4) node merge/diverge over all links, and write-back to this step's
-    R_all, = links.gather(R)
-    inflow_all, outflow_all, virt_dep, virt_arr = _node_solve(
-        scn, ep, t, S_all, R_all, phi_c, phi)
-    inflow_e, outflow_e = links.own(inflow_all), links.own(outflow_all)
+        # 4) node merge/diverge over all links, and write-back to this step's
+        with span("engine.node_solve"):
+            R_all, = links.gather(R)
+            inflow_all, outflow_all, virt_dep, virt_arr = _node_solve(
+                scn, ep, t, S_all, R_all, phi_c, phi)
+            inflow_e, outflow_e = links.own(inflow_all), links.own(outflow_all)
 
-    # 5) cumulative curves (node.py:146-162), ring rows written in place;
-    #    the inflow ring feeds the fused read's diffusion taps
-    cum_in = st.cum_in + inflow_e
-    cum_out = st.cum_out + outflow_e
-    _write_row(st.cum_in_ring, t, H, cum_in)
-    _write_row(st.cum_out_ring, t, H, cum_out)
-    _write_row(st.inflow_ring, t, H, inflow_e)
+        with span("engine.link_update"):
+            # 5) cumulative curves (node.py:146-162), ring rows written in
+            #    place; the inflow ring feeds the fused read's diffusion taps
+            cum_in = st.cum_in + inflow_e
+            cum_out = st.cum_out + outflow_e
+            _write_row(st.cum_in_ring, t, H, cum_in)
+            _write_row(st.cum_out_ring, t, H, cum_out)
+            _write_row(st.inflow_ring, t, H, inflow_e)
 
-    # 6) density, speed and travel-time updates
-    num_peds, density, speed, travel_time, link_flow, avg_tt, run_sum = (
-        _update_link_states(scn, ep, st, t, inflow_e, outflow_e, links, gen, stochastic))
+            # 6) density, speed and travel-time updates
+            num_peds, density, speed, travel_time, link_flow, avg_tt, run_sum = (
+                _update_link_states(scn, ep, st, t, inflow_e, outflow_e, links, gen,
+                                    stochastic))
 
-    new_state = st.replace(
-        t=t + 1,
-        cum_in=cum_in,
-        cum_out=cum_out,
-        inflow=inflow_e,
-        outflow=outflow_e,
-        num_peds=num_peds,
-        density=density,
-        speed=speed,
-        travel_time=travel_time,
-        link_flow=link_flow,
-        avg_tt=avg_tt,
-        tt_run_sum=run_sum,
-        sending_prev=S,
-        recv_prev=R,
-        virt_dep=virt_dep,
-        virt_arr=virt_arr,
-        virt_dep_cum=st.virt_dep_cum + virt_dep,
-        virt_arr_cum=st.virt_arr_cum + virt_arr,
-    )
+            new_state = st.replace(
+                t=t + 1,
+                cum_in=cum_in,
+                cum_out=cum_out,
+                inflow=inflow_e,
+                outflow=outflow_e,
+                num_peds=num_peds,
+                density=density,
+                speed=speed,
+                travel_time=travel_time,
+                link_flow=link_flow,
+                avg_tt=avg_tt,
+                tt_run_sum=run_sum,
+                sending_prev=S,
+                recv_prev=R,
+                virt_dep=virt_dep,
+                virt_arr=virt_arr,
+                virt_dep_cum=st.virt_dep_cum + virt_dep,
+                virt_arr_cum=st.virt_arr_cum + virt_arr,
+            )
     out = None
     if record:
         out = StepOutputs(

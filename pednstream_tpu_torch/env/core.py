@@ -36,6 +36,7 @@ import torch
 
 from ..engine import step_fn
 from ..state import NetworkState, StepOutputs
+from ..tracing import span
 from .agents import FEATURES_PER_LINK, AgentSpec
 
 _f32 = torch.float32
@@ -244,17 +245,20 @@ class PedNetEnvCore:
 
     def _step_impl(self, st: NetworkState, actions: Dict, ep=None, gen=None):
         ep = self.scn.engine_params if ep is None else ep
-        st = self._apply_actions(st, actions)
+        with span("env.actions"):
+            st = self._apply_actions(st, actions)
         rewards = None
         outs = []
         # action_gap engine steps per RL step (pz_pednet_env.py:225-247)
         for _ in range(self.action_gap):
             st, o = step_fn(self.scn, ep, st, gen, stochastic=self.stochastic,
                             record=self.record)
-            r = self._rewards(st, ep)
-            rewards = r if rewards is None else {k: rewards[k] + r[k] for k in r}
+            with span("env.rewards"):
+                r = self._rewards(st, ep)
+                rewards = r if rewards is None else {k: rewards[k] + r[k] for k in r}
             outs.append(o)
-        obs = self._observations(st)
+        with span("env.observations"):
+            obs = self._observations(st)
         # sim_step >= simulation_steps, per replica or for the whole batch
         if isinstance(st.t, torch.Tensor):
             done = st.t > self.scn.simulation_steps
@@ -309,8 +313,9 @@ class PedNetEnvCore:
                               gen: Optional[torch.Generator] = None, lockstep: bool = True):
         """Batched step with per-replica EngineParams (every leaf with a
         leading ``B``, see ``randomize``).  For ``lockstep`` see
-        :meth:`batch_step`."""
-        st, obs, rewards, done, _ = self._step_impl(states, actions, engine_params, gen)
-        if lockstep and isinstance(states.t, torch.Tensor):
-            st, obs, rewards = _poison_if_not_lockstep(states.t, st, obs, rewards)
+        :meth:`batch_step`.  Runs under the span ``env.step``."""
+        with span("env.step"):
+            st, obs, rewards, done, _ = self._step_impl(states, actions, engine_params, gen)
+            if lockstep and isinstance(states.t, torch.Tensor):
+                st, obs, rewards = _poison_if_not_lockstep(states.t, st, obs, rewards)
         return st, obs, rewards, done

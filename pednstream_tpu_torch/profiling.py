@@ -21,10 +21,12 @@ turns);
 full-horizon rings), each call one ``run_simulation(steps=1)`` request, its
 synchronize before the reply included.  Each run steps ``--warm`` times, times ``--steps``
 more steps on the host clock with the profiler off (ending in
-``torch.cuda.synchronize()``), then profiles ``--steps`` more.  It prints
-one JSON line: wall ms per step (profiler off), device kernels and
+``torch.cuda.synchronize()``), then profiles ``--steps`` more, dispatched
+ahead under one profiler and closed by one synchronize.  It prints one
+JSON line: wall ms per step (profiler off), device kernels and
 ``cudaLaunch*`` calls per step, kernel ms per step (the profiler's summed
-device self time), the device idle share ``1 - kernel / wall``, and the
+device self time), the device idle share of the profiled stretch (one
+minus the union of its device intervals over its host wall), and the
 kernels with the most device time, each with its count and ms per step.
 ``--with-plain`` adds the same numbers for the step with the two hot ops'
 plain versions in place of their kernels (:func:`plain_hot_ops`: the step
@@ -42,10 +44,11 @@ over ``--steps`` iterations each.  It prints wall ms per iteration for
 each half, device kernels per RL step of the rollout and per update,
 kernel ms, idle shares and each half's top kernels.
 
-:func:`trace_profile` and :class:`StepTimer` are the counterparts of
-``pednstream_tpu/utils/profiling.py`` (``utils`` exports them): a
-``torch.profiler`` trace written for Perfetto or ``chrome://tracing``, and
-a running steps-per-second counter for training and simulation loops.
+:func:`trace_profile` is the counterpart of
+``pednstream_tpu/utils/profiling.py``'s (``utils`` exports it): a
+``torch.profiler`` trace written for Perfetto or ``chrome://tracing``, in
+which the engine step's phases and the env step's parts show as the
+spans of :mod:`.tracing`.
 """
 
 import argparse
@@ -55,7 +58,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 from torch.autograd import DeviceType
@@ -103,38 +106,6 @@ def trace_profile(log_dir: str = "outputs/profile"):
     finally:
         prof.stop()
         prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
-
-
-class StepTimer:
-    """Running steps/sec counter with EMA smoothing."""
-
-    def __init__(self, ema: float = 0.1):
-        self.ema = ema
-        self.rate: Optional[float] = None
-        self.total_steps = 0
-        self._last_t: Optional[float] = None
-        self._t0 = time.time()
-
-    def tick(self, steps: int = 1) -> Optional[float]:
-        now = time.time()
-        self.total_steps += steps
-        if self._last_t is not None:
-            dt = now - self._last_t
-            if dt > 0:
-                inst = steps / dt
-                self.rate = inst if self.rate is None else (
-                    (1 - self.ema) * self.rate + self.ema * inst)
-        self._last_t = now
-        return self.rate
-
-    @property
-    def average(self) -> float:
-        elapsed = time.time() - self._t0
-        return self.total_steps / elapsed if elapsed > 0 else 0.0
-
-    def summary(self) -> str:
-        return (f"{self.total_steps} steps, avg {self.average:.1f} steps/s"
-                + (f", current {self.rate:.1f} steps/s" if self.rate else ""))
 
 
 def _sync(device) -> None:
@@ -222,28 +193,43 @@ def served_stepper(dataset: str, batch: int, binomial_mode: str, device,
 
 def _trace(calls, steps: int, device, top: int, between=None) -> dict:
     """Kernel statistics of ``steps`` calls of ``calls`` under
-    ``torch.profiler`` (``between`` runs after each call, untraced)."""
+    ``torch.profiler``.  With no ``between`` the calls are dispatched ahead
+    under one profiler and closed by one synchronize, and the stretch's
+    host wall (``wall_ms``) and the union of its device intervals
+    (``busy_ms``) come with them; else each call is profiled alone and
+    ``between`` runs after it, untraced."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    kernels, launches = {}, 0
-    for _ in range(steps):
+    kernels, launches, intervals, wall = {}, 0, [], 0.0
+    for per_profile in [steps] if between is None else [1] * steps:
         with torch.profiler.profile(activities=activities) as prof:
-            calls()
+            t0 = time.perf_counter()
+            for _ in range(per_profile):
+                calls()
             _sync(device)
+            wall += time.perf_counter() - t0
         for r in prof.key_averages():
             if r.device_type == DeviceType.CUDA:
                 n, us = kernels.get(r.key, (0, 0.0))
                 kernels[r.key] = (n + r.count, us + r.self_device_time_total)
             elif r.key.startswith("cudaLaunch"):
                 launches += r.count
+        intervals += [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == DeviceType.CUDA]
         if between is not None:
             between()
+    busy, end = 0, 0  # the length of the intervals' union
+    for a, b in sorted(intervals):
+        busy += max(b - max(a, end), 0)
+        end = max(end, b)
     rows = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)
     return {
         "kernels": sum(n for n, _ in kernels.values()) / steps,
         "launch_calls": launches / steps,
         "kernel_ms": sum(us for _, us in kernels.values()) / 1e3 / steps,
+        "busy_ms": busy / 1e6 / steps,
+        "wall_ms": wall * 1e3 / steps,
         "top_kernels": [{"name": k[:120], "per_call": n / steps, "ms_per_call": us / 1e3 / steps}
                         for k, (n, us) in rows[:top]],
     }
@@ -264,7 +250,7 @@ def profile(step: Callable[[], None], warm: int, steps: int, device, top: int = 
         "steps": steps, "warm": warm, "wall_ms_per_step": wall_ms,
         "kernels_per_step": tr["kernels"], "launch_calls_per_step": tr["launch_calls"],
         "kernel_ms_per_step": tr["kernel_ms"],
-        "device_idle_share": 1.0 - tr["kernel_ms"] / wall_ms,
+        "device_idle_share": 1.0 - tr["busy_ms"] / tr["wall_ms"],
         "top_kernels": [{"name": r["name"], "per_step": r["per_call"],
                          "ms_per_step": r["ms_per_call"]} for r in tr["top_kernels"]],
     }

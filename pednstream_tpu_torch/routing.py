@@ -35,6 +35,7 @@ from .device import DEFAULT, resolve
 from .ops import turning_fractions
 from .state import _Tensors
 from .topology import TopologySpec
+from .tracing import kept_span
 
 
 # --------------------------------------------------------------------------
@@ -96,6 +97,7 @@ class PathSetBuilder:
         self.nodes_in_paths: Set[int] = set()
         self.node_to_od_pairs: Dict[int, Set[Tuple[int, int]]] = {}
 
+    @kept_span("scenario.od_paths")
     def find_od_paths(self, od_pairs) -> None:
         for origin, dest in od_pairs:
             paths = enumerate_shortest_simple_paths(

@@ -27,6 +27,7 @@ from .device import DEFAULT, resolve
 from .routing import PathSetBuilder, RoutingTables, build_routing_tables
 from .state import EngineParams, NetworkState
 from .topology import TopologySpec, build_topology, parse_controllers
+from .tracing import kept_span
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -238,6 +239,7 @@ class Scenario:
         )
 
 
+@kept_span("scenario.build")
 def build_scenario(
     adjacency_matrix: np.ndarray,
     params: dict,
@@ -265,6 +267,9 @@ def build_scenario(
     union of nominal and candidate OD nodes, with the candidates closed
     (zero demand row, zero od_table rows, zero virtual receiving) until
     :mod:`~pednstream_tpu_torch.randomize` opens them per replica.
+
+    The build is kept as the span ``scenario.build``, its path enumeration
+    as ``scenario.od_paths`` (:func:`~pednstream_tpu_torch.tracing.kept_spans`).
     """
     device = resolve(device)
     if ftype not in _NP:

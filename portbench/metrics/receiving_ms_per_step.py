@@ -1,0 +1,8 @@
+"""Device milliseconds per batch step of the engine step's span
+``engine.receiving``: the receiving flows (phase 3)."""
+
+from portbench.spans import device_ms_per_step
+
+
+def read(ctx):
+    return device_ms_per_step(ctx.trace, ("engine.receiving",))

@@ -169,7 +169,6 @@ def test_utils_profiling_module_path():
     import pednstream_tpu_torch.utils.profiling as up
     from pednstream_tpu_torch import profiling
 
-    assert up.StepTimer is profiling.StepTimer
     assert up.trace_profile is profiling.trace_profile
 
 

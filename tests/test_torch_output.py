@@ -24,8 +24,8 @@ from pednstream_tpu_torch.interop import numpy_leaves
 from pednstream_tpu_torch.io import OutputHandler
 from pednstream_tpu_torch.scenario import build_scenario
 from pednstream_tpu_torch.state import StepOutputs
-from pednstream_tpu_torch.utils import (StepTimer, load_engine_state, save_engine_state,
-                                        setup_logger, trace_profile)
+from pednstream_tpu_torch.utils import (load_engine_state, save_engine_state, setup_logger,
+                                        trace_profile)
 
 NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
 torch_build = partial(build_scenario, device="cpu")
@@ -205,10 +205,7 @@ def test_checkpoint_refuses_another_scenario(tmp_path):
         load_engine_state(path, scn.init_state(2), device="cpu")
 
 
-def test_step_timer_trace_profile_and_logger(tmp_path):
-    timer = StepTimer()
-    assert timer.tick(5) is None and timer.tick(5) > 0
-    assert timer.total_steps == 10 and "10 steps" in timer.summary()
+def test_trace_profile_and_logger(tmp_path):
     with trace_profile(str(tmp_path / "prof")) as log_dir:
         torch.ones(8).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0 and log_dir.endswith("prof")
