@@ -40,12 +40,15 @@ exits non-zero):
    random operands at the other fast-sampling paths' shapes; the routed
    turning fractions (``ops.turning_fractions``, ``csrc/routing.cu``) at the
    main path's and the env episode's real operands and at random operands
-   on every other table form (the env's with a shared od flow, the served
+   on every other table form (the env's with a shared od flow and at the
+   benchmark's batch with the env's strided od column, the served
    melbourne, the trainers' env, butterfly_scC, delft, grid_50x50, float64
    exact parity: the het batch and a routed golden scenario).  Each case
    prints device µs (a CUDA graph of launches), wrapper host µs, the plain
    version's time and the bound (bytes this data needs over the memory
-   rate against float operations over the float32 or float64 rate).  Then
+   rate against float operations over the float32 or float64 rate); where
+   the batch takes the routing kernel's streamed design, its walk is held
+   and timed on the same operands too.  Then
    100 stochastic main-path steps and 50 env RL steps, each with the kernels
    and with the plain versions from one seed: every state leaf (and the
    env's observations and rewards) bit for bit.
@@ -288,7 +291,7 @@ SCRIPTS = {"reset_dataset": "butterfly_scC", "eval_dataset": "long_corridor", "e
 # shapes on the other paths that sample with it (random operands): the
 # sweeps' largest rows, the link-sharded, hybrid and trainer blocks, the
 # grid example's batch and the sharded grid's block
-HOT_OPS = {"main_steps": 100, "env_rl_steps": 50}
+HOT_OPS = {"main_steps": 100, "env_rl_steps": 50, "env_bench_batch": 8192}
 BINOM_SHAPES = [(1536, 938), (512, 9800), LINK_BLOCK[::2], HYBRID_BLOCK[::2], (256, 168),
                 (128, 168), (16, 9800), (4, 54120)]
 
@@ -693,6 +696,54 @@ def hold_hot_kernel(card, kernel, key, label, fn, plain, ops, bound, plain_iters
             "operands": label}
 
 
+@contextlib.contextmanager
+def routing_walk():
+    """The routing kernel's walk at any batch while entered: the streamed
+    design given no warps, so that both designs run on the same operands.
+    It swaps a module attribute, so no other thread may route meanwhile."""
+    import pednstream_tpu_torch.ops.routing as kernel
+
+    saved = kernel.lane_warps
+    kernel.lane_warps = lambda *args: 0
+    try:
+        yield
+    finally:
+        kernel.lane_warps = saved
+
+
+def hold_routing(card, key, label, rt, M, ops, plain_iters) -> dict:
+    """``hold_hot_kernel`` for the routing kernel on ``ops``, under the
+    design the batch takes; where that is the streamed design, the walk is
+    held bitwise on the same operands too, and its device time kept beside
+    (``walk_ms``).  Prints the case, and returns it with its design."""
+    import torch
+    from pednstream_tpu_torch.ops import turning_fractions
+    from pednstream_tpu_torch.routing import turning_fractions_step, turning_fractions_step_plain
+
+    def fn(*o):
+        return turning_fractions_step(rt, M, *o)
+
+    def plain(*o):
+        return turning_fractions_step_plain(rt, M, *o)
+
+    before = dict(turning_fractions.launches_by_design)
+    case = hold_hot_kernel(card, "turning_fractions", key, label, fn, plain, ops,
+                           routing_bound(rt, M, *ops), plain_iters)
+    design, = (d for d, n in turning_fractions.launches_by_design.items() if n != before[d])
+    case["design"] = design
+    if design == "lanes":
+        with routing_walk():
+            got, want = fn(*ops), plain(*ops)
+            torch.cuda.synchronize()
+            if not bits_equal(got, want):
+                raise AssertionError(f"turning_fractions walk != plain ({label})")
+            case["walk_ms"] = device_ms(lambda: fn(*ops))
+        emit("hot_kernel_walk", kernel="turning_fractions", dtype=key, operands=label,
+             bitwise_equal=True, device_ms=case["walk_ms"], streamed_ms=case["device_ms"],
+             share_of_bound=case["bound_ms"] / case["walk_ms"], card=card)
+    return case
+
+
 def phase_hot_ops(card: str, scn) -> dict:
     """Phase 3b: the hand kernels of the step's hot ops against their plain
     versions, bitwise, at every path's shape and table form, with device
@@ -707,7 +758,6 @@ def phase_hot_ops(card: str, scn) -> dict:
     from pednstream_tpu_torch.ops import binom_fast, binom_fast_plain
     from pednstream_tpu_torch.profiling import ZOO_PPO, plain_hot_ops
     from pednstream_tpu_torch.randomize import randomize_engine_params_batched
-    from pednstream_tpu_torch.routing import turning_fractions_step, turning_fractions_step_plain
 
     record = {}
     rng = np.random.default_rng(SEED)
@@ -762,10 +812,7 @@ def phase_hot_ops(card: str, scn) -> dict:
 
     # the routing kernel at the main path's real operands
     (rt, M, *ops), = routing_calls[:1]
-    hold_hot_kernel(card, "turning_fractions", "float32", "main path, real",
-                    lambda *o: turning_fractions_step(rt, M, *o),
-                    lambda *o: turning_fractions_step_plain(rt, M, *o), ops,
-                    routing_bound(rt, M, *ops), 20)
+    hold_routing(card, "float32", "main path, real", rt, M, ops, 20)
 
     # the env episode, kernels then plain versions from one seed; its last
     # step's routing operands kept
@@ -803,10 +850,8 @@ def phase_hot_ops(card: str, scn) -> dict:
     emit("hot_env_bitwise", rl_steps=HOT_OPS["env_rl_steps"], batch=B,
          routing_launches=HOT_OPS["env_rl_steps"], bitwise_equal=True, card=card)
     (rt, M, *ops), = env_calls
-    record[("turning_fractions", "float32")] = hold_hot_kernel(
-        card, "turning_fractions", "float32", "env, real (RL step 50)",
-        lambda *o: turning_fractions_step(rt, M, *o),
-        lambda *o: turning_fractions_step_plain(rt, M, *o), ops, routing_bound(rt, M, *ops), 5)
+    record[("turning_fractions", "float32")] = hold_routing(
+        card, "float32", "env, real (RL step 50)", rt, M, ops, 5)
 
     # every other table form at its path's batch, random operands: the env's
     # with a shared od flow, the served melbourne, the trainers' env, the
@@ -818,6 +863,9 @@ def phase_hot_ops(card: str, scn) -> dict:
     butterfly["params"]["seed"] = GPU_VS_CPU["demand_seed"]
     golden, _, _ = fixture_args(ROOT / "tests" / "golden" / "grid10.npz")
     tables = [("env, shared od", env.scn, B),
+              # the benchmark's env batch, od flows a column of a [B, P, T+1]
+              # table as the env passes them
+              ("env, od column", env.scn, HOT_OPS["env_bench_batch"]),
               ("served melbourne", scn, 1),
               ("trainer env", train_env().scn, ZOO_PPO["num_envs"]),
               ("trainer env", None, SAC_TRAIN["num_envs"]),
@@ -842,12 +890,13 @@ def phase_hot_ops(card: str, scn) -> dict:
         recv = torch.from_numpy(np.where(rng.uniform(size=(batch, E)) < 0.3, -1.0,
                                          rng.integers(0, 40, (batch, E)))).to("cuda", f)
         cap = torch.from_numpy(rng.uniform(5, 60, (batch, E))).to("cuda", f)
-        od = tscn.engine_params.od_table[:, tscn.engine_params.od_table.shape[1] // 3]
+        table = tscn.engine_params.od_table
+        od = table[:, table.shape[1] // 3]
+        if "column" in label:
+            scale = torch.from_numpy(rng.uniform(0, 2, (batch, 1, 1))).to("cuda", od.dtype)
+            od = (table[None] * scale)[:, :, table.shape[1] // 3]
         ops = [dens, recv, cap, od]
-        case = hold_hot_kernel(card, "turning_fractions", key, f"{label}, B={batch}, random",
-                               lambda *o: turning_fractions_step(rt, M, *o),
-                               lambda *o: turning_fractions_step_plain(rt, M, *o), ops,
-                               routing_bound(rt, M, *ops), 5)
+        case = hold_routing(card, key, f"{label}, B={batch}, random", rt, M, ops, 5)
         if label.startswith("golden"):
             record[("turning_fractions", key)] = case
     return record

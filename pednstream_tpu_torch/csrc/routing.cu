@@ -29,24 +29,55 @@
 // routing.exp_like_xla step for step, float64 exp the CUDA exp() that
 // torch.exp calls.  So the result equals the plain version bit for bit.
 //
-// What bounds it.  A step needs, per replica, the node's density, recv_prev
-// and cap_default of each distinct down link and od flow of each uo entry,
-// and writes NR * M * M values: a few KB per replica.  The tables (member
-// rows, entry tables, int64) are shared by the replicas and read once from
-// device memory, then from L2.  The float work is about 50 operations per
-// turn entry.  At these sizes neither bound is near: the step is launch-
-// and latency-bound (a chain of dependent shared-memory phases per block).
+// Two designs compute this function; the wrapper (ops/routing.py) takes
+// one by the number of replicas B alone: the streamed design from B = 32,
+// a warp of replicas, and the walk below it.
 //
-// What the design does about it.  The plain version runs one eager
-// where+gather+add per padded member column (about 2,000 launches per env
-// step); here one block owns one (routed node, replica), so every segment
-// of the node lies in the block and no sum crosses blocks or needs an
-// atomic.  The build emits each node's entries, softmax groups, uo entries
-// and (node, up) groups contiguously (node_offsets), so the block stages
-// its node's values in shared memory and the member rows index them.  Each
-// (segment, lane) is walked by one thread, which stops at the first -1
-// instead of reading the padding; the lanes are then combined by one
-// thread per segment.
+// The walk (turning_fractions_kernel, B < 32: the served and golden paths
+// at B = 1, hetero, delft).  One block of 128 threads per (routed node,
+// replica), so every segment of the node lies in the block and no sum
+// crosses blocks or needs an atomic.  The build emits each node's entries,
+// softmax groups, uo entries and (node, up) groups contiguously
+// (node_offsets), so the block stages its node's values in shared memory
+// and the member rows index them.  Each (segment, lane) is walked by one
+// thread, which stops at the first -1 instead of reading the padding; the
+// lanes are then combined by one thread per segment.  What bounds it: a
+// chain of dependent phases per block (member ids from L2, a shared read,
+// an add, nine barriers), and every block re-reads the tables its replica
+// shares with the others.  At a few replicas that chain is the whole
+// step, and lanes without a replica would idle in the streamed design.
+//
+// The streamed design (turning_fractions_kernel_lanes, B >= 32: the env,
+// the trainers, the main path, the sweeps).  A lane holds one replica, and
+// a block holds one unit, a routed node's up slot, for 32 replicas: every
+// sum splits by up slot (a softmax group is (node, od, up), the P(od | up)
+// sum is per (node, up), a phi row and the guard's row are the up slot's).
+// The grid runs over (unit, replica tile), the units with the most entries
+// first so that their blocks do not form the tail.  The unit's groups and
+// entries stream past once per block in ascending id, read through
+// warp-uniform loads of int32 codes listed unit by unit
+// (routing.py::_lane_tables), and every lane adds each entry into the
+// accumulator of its (segment, GEMV row).  The rule by which the build
+// gives an id its row, id % W below total - total % W and the epilogue
+// above, is the one the member tables hold, so each accumulator receives
+// its row's members in the row's order and the result is the walk's bit
+// for bit: accumulators start at -0.0 (so the first member is taken as it
+// is) and add +0.0 once when their row is shorter than the table's width
+// (the codes' "short" bits).  The (node, up) sum comes first; then group
+// by group the capacity sums, z and its sums, and each entry's
+// c = (z / zsum) * P(od | up) into its phi slot; then the guard.  Where
+// the units and tiles alone leave SMs idle (small B), a unit gets W warps
+// (ops/routing.py::lane_warps), each owning some of its phi accumulators
+// and working only the groups that add into them, so the warps meet once,
+// before the guard.  Per-replica od flows (the env passes a strided column
+// of its [B, P, T+1] table, each flow in its own 32-byte sector) are first
+// copied to a [P, B] buffer (turning_fractions_kernel_od_by_pair), so a
+// warp reads the flows of its 32 replicas as one 128-byte line.  What
+// bounds it: each unit's chain per entry of about 100 instructions with
+// two correctly rounded divisions and the exp polynomial, at the 32 warps
+// an SM's registers hold; the tables are read once per 32 replicas.  Below
+// about 64 replicas on large tables, and on tiny ones, the walk is a few
+// microseconds faster; the threshold stays at a full warp of replicas.
 
 #include <cuda_runtime.h>
 
@@ -113,7 +144,57 @@ struct RoutingArgs {
     long long max_entries, max_groups, max_uo_entries, max_uo_groups;
     long long threads, shared_bytes;
     double beta, neg_temp, omega;
+    // the streamed design (routing.py::_lane_tables): its warps per block,
+    // or 0 for the walk
+    long long lanes;
+    const int* lane_entry;      // [K] by unit
+    const int* lane_group;      // [G, 4] by unit
+    const int* lane_unit;       // [NR * M + 1, 3]
+    const int* lane_order;      // [NR * M]
+    const int* lane_down_link;  // [NR, M]
+    const int* lane_uo_short;   // [UG]
+    const int* lane_phi_short;  // [NR * M * M]
+    const void* lane_dist_util;  // [K] T by unit
+    long long group_max;        // the most entries a softmax group holds
+    long long P;                // od pairs
+    void* od_by_pair;           // [P, B] T scratch for per-replica od flows
 };
+
+// Replica b's capacity of down link l and its density term beta * bn,
+// the second in float32 as the plain version stages it (l < 0: no link).
+template <typename T>
+__device__ __forceinline__ void link_terms(const RoutingArgs& a, long long b, long long l,
+                                           T& cap, T& bn) {
+    cap = T(100);
+    float dens = 0.0f;
+    if (l >= 0) {
+        const T rp = static_cast<const T*>(a.recv_prev)[b * a.recv_prev_sb + l * a.recv_prev_se];
+        cap = rp >= T(0) ? rp
+              : static_cast<const T*>(a.cap_default)[b * a.cap_default_sb + l * a.cap_default_se];
+        dens = static_cast<const float*>(a.density)[b * a.density_sb + l * a.density_se];
+    }
+    // torch.clamp(dens - 2, min=0) / (10 - 2): the division by 8 is exact
+    const float nd = div_rn(max_nan(sub_rn(dens, 2.0f), 0.0f), 8.0f);
+    bn = T(mul_rn((float)a.beta, nd));
+}
+
+// The row guard (check_fractions) of one phi row, phi[j * stride], into
+// out[j]: renormalised when its sum is off 1 and positive, the uniform
+// fallback when off 1 and not positive.  The row sum is left to right.
+template <typename T>
+__device__ __forceinline__ void guard_row(const T* phi, int stride, int M, const T* offdiag,
+                                          T* out) {
+    T rowsum = phi[0];
+    for (int j = 1; j < M; ++j) rowsum = add_rn(rowsum, phi[j * stride]);
+    T d = sub_rn(rowsum, T(1));
+    d = d < T(0) ? -d : d;
+    const bool need_fix = d > T(1e-3);
+    const bool pos = rowsum > T(1e-6);
+    for (int j = 0; j < M; ++j) {
+        const T v = phi[j * stride];
+        out[j] = need_fix && pos ? div_rn(v, rowsum) : need_fix ? offdiag[j] : v;
+    }
+}
 
 // Sums of vals over the members of segments [s0, s0 + S) of a table
 // [*, Q, L] whose ids start at id0, into out[S]; lane holds Q * S partials.
@@ -163,9 +244,6 @@ __global__ void turning_fractions_kernel(const RoutingArgs a) {
     T* s_phi = s_grp + a.max_groups;           // the node's M x M slots
     T* s_lane = s_phi + MM;                    // per (segment, lane) partials
 
-    const float* density = static_cast<const float*>(a.density);
-    const T* recv_prev = static_cast<const T*>(a.recv_prev);
-    const T* cap_default = static_cast<const T*>(a.cap_default);
     const T* od_flow = static_cast<const T*>(a.od_flow);
     const T* dist_util = static_cast<const T*>(a.dist_util);
     const T* uo_inv_count = static_cast<const T*>(a.uo_inv_count);
@@ -175,21 +253,8 @@ __global__ void turning_fractions_kernel(const RoutingArgs a) {
         const long long p = __ldg(a.uo_od + u0 + i);
         s_uo[i] = od_flow[b * a.od_flow_sb + p * a.od_flow_sp];
     }
-    const float beta = (float)a.beta;
-    for (int i = threadIdx.x; i < nk; i += blockDim.x) {
-        const long long l = __ldg(a.te_down_link + k0 + i);
-        T cap = T(100);
-        float dens = 0.0f;
-        if (l >= 0) {
-            const T rp = recv_prev[b * a.recv_prev_sb + l * a.recv_prev_se];
-            cap = rp >= T(0) ? rp : cap_default[b * a.cap_default_sb + l * a.cap_default_se];
-            dens = density[b * a.density_sb + l * a.density_se];
-        }
-        // torch.clamp(dens - 2, min=0) / (10 - 2): the division by 8 is exact
-        const float nd = div_rn(max_nan(sub_rn(dens, 2.0f), 0.0f), 8.0f);
-        s_ent_a[i] = cap;
-        s_ent_b[i] = T(mul_rn(beta, nd));
-    }
+    for (int i = threadIdx.x; i < nk; i += blockDim.x)
+        link_terms(a, b, __ldg(a.te_down_link + k0 + i), s_ent_a[i], s_ent_b[i]);
     __syncthreads();
 
     // P(od | up) and the capacity sums of the softmax groups
@@ -220,29 +285,252 @@ __global__ void turning_fractions_kernel(const RoutingArgs a) {
     segment_sums(a.phi_c_members, (long long)r * MM, MM, Q, (int)a.Lp, k0, s_ent_a, s_lane,
                  s_phi);
 
-    // the row guard (check_fractions): one thread per incoming slot
+    // the row guard: one thread per incoming slot
     const T* offdiag = static_cast<const T*>(a.offdiag_uniform) + (long long)r * MM;
     T* out = static_cast<T*>(a.out) + (b * a.NR + r) * MM;
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
-        const T* row = s_phi + i * M;
-        T rowsum = row[0];
-        for (int j = 1; j < M; ++j) rowsum = add_rn(rowsum, row[j]);
-        T d = sub_rn(rowsum, T(1));
-        d = d < T(0) ? -d : d;
-        const bool need_fix = d > T(1e-3);
-        const bool pos = rowsum > T(1e-6);
-        for (int j = 0; j < M; ++j) {
-            const T phi = row[j];
-            out[i * M + j] = need_fix && pos ? div_rn(phi, rowsum)
-                             : need_fix ? offdiag[i * M + j]
-                             : phi;
+    for (int i = threadIdx.x; i < M; i += blockDim.x)
+        guard_row(s_phi + i * M, 1, M, offdiag + i * M, out + i * M);
+}
+
+// ---- the streamed design: a block per (routed node's up slot, 32 replicas) ----
+
+constexpr int LANE_TILE = 32;  // a block's replicas, a replica a lane of each warp
+
+// The sum of one segment from its Q row accumulators: +0.0 added to the
+// rows shorter than the table's width (bit q of `short_rows`), then the
+// rows in XLA's GEMV order.
+template <typename T, int Q>
+__device__ __forceinline__ T rows_sum(const T (&l)[Q], int short_rows) {
+    T v[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q] = (short_rows >> q) & 1 ? add_rn(l[q], T(0)) : l[q];
+    if constexpr (Q == 5) {
+        return add_rn(add_rn(add_rn(v[0], v[2]), add_rn(v[1], v[3])), v[4]);
+    } else if constexpr (Q == 3) {
+        return add_rn(add_rn(v[0], v[1]), v[2]);
+    } else {
+        return v[0];
+    }
+}
+
+// v added into row `row` of the Q register accumulators (row is the same
+// on every lane, so the unrolled selects cost no divergence)
+template <typename T, int Q>
+__device__ __forceinline__ void add_row(T (&l)[Q], int row, T v) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) l[q] = q == row ? add_rn(l[q], v) : l[q];
+}
+
+template <typename T, int Q>
+__device__ __forceinline__ void fresh(T (&l)[Q]) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) l[q] = T(-0.0);
+}
+
+// The per-replica od flows of a [B, P] operand (any strides) as a [P, B]
+// buffer: 32 x 32 tiles through shared memory, so that both the reads
+// along a replica's pairs and the writes along a pair's replicas coalesce
+// where the operand's layout lets them.
+template <typename T>
+__global__ void turning_fractions_kernel_od_by_pair(const RoutingArgs a) {
+    __shared__ T tile[32][33];
+    const T* od = static_cast<const T*>(a.od_flow);
+    T* out = static_cast<T*>(a.od_by_pair);
+    const long long b0 = (long long)blockIdx.x * 32, p0 = (long long)blockIdx.y * 32;
+    for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+        const long long b = b0 + i, p = p0 + threadIdx.x;
+        if (b < a.B && p < a.P) tile[i][threadIdx.x] = od[b * a.od_flow_sb + p * a.od_flow_sp];
+    }
+    __syncthreads();
+    for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+        const long long p = p0 + i, b = b0 + threadIdx.x;
+        if (b < a.B && p < a.P) out[p * a.B + b] = tile[threadIdx.x][i];
+    }
+}
+
+// One unit, a routed node's up slot u, for 32 replicas (a replica a
+// lane), by W warps (blockDim.y).  Warp w owns the unit's phi accumulators
+// (down slot d, GEMV row q) with (d * Q + q) % W == w: it works the groups
+// with an entry in one of them (the group's `owners` bits) and adds only
+// into its own, so each accumulator takes its members in ascending id from
+// one warp and the warps meet only before the guard.  W is 1 where the
+// batch alone fills the card.  A warp's lanes load 32 groups' records at
+// once; a ballot picks the warp's groups and a scan of the entry counts
+// finds their entries.  The (node, up) sum (every warp's own copy), each
+// softmax group's capacity and exp sums and the group being worked on
+// live in registers; each replica's down slots' capacity and density
+// terms, each warp's group's z and the phi row's accumulators [M][Q] in
+// shared memory, LANE_TILE words apart (ops/routing.py::lane_bytes).  A
+// lane past the batch reads the last replica's operands and writes nothing.
+template <typename T, int Q>
+__global__ void __launch_bounds__(1024) turning_fractions_kernel_lanes(const RoutingArgs a) {
+    constexpr unsigned ALL = 0xffffffffu;
+    const int tiles = (int)((a.B + LANE_TILE - 1) / LANE_TILE);
+    const int M = (int)a.M, W = blockDim.y, w = threadIdx.y, lane = threadIdx.x;
+    const int unit = a.lane_order[blockIdx.x / tiles];
+    const int r = unit / M, u = unit - r * M;
+    const long long b_live = (long long)(blockIdx.x % tiles) * LANE_TILE + lane;
+    const long long b = min(b_live, a.B - 1);
+
+    extern __shared__ unsigned char smem_raw[];
+    T* cap = reinterpret_cast<T*>(smem_raw) + lane;  // [M]
+    T* bn = cap + M * LANE_TILE;                      // [M]
+    T* phi = bn + M * LANE_TILE;                      // [M][Q]
+    T* zbuf = phi + M * Q * LANE_TILE + w * a.group_max * LANE_TILE;  // [W][group_max]
+#define AT(p, i) (p)[(i) * LANE_TILE]
+
+    const T* dist_util = static_cast<const T*>(a.lane_dist_util);
+    const T* od_shared = static_cast<const T*>(a.od_flow);
+    const T* od_mine = static_cast<const T*>(a.od_by_pair);
+    const bool per_replica = od_mine != nullptr;
+    auto od_flow = [&](int p) {
+        return per_replica ? od_mine[p * a.B + b] : od_shared[p * a.od_flow_sp];
+    };
+
+    // each down slot's capacity and density term; the accumulators at -0.0
+    if (w == 0) {
+        for (int d = 0; d < M; ++d)
+            link_terms(a, b, __ldg(a.lane_down_link + r * M + d), AT(cap, d), AT(bn, d));
+        for (int i = 0; i < M * Q; ++i) AT(phi, i) = T(-0.0);
+    }
+    __syncthreads();
+
+    // the (node, up) sum of the groups' od flows, eight in flight
+    const int* row = a.lane_unit + 3 * unit;
+    const int4* groups = reinterpret_cast<const int4*>(a.lane_group);
+    const int g0 = __ldg(row), g1 = __ldg(row + 3), ug = __ldg(row + 2);
+    T acc[Q];
+    fresh(acc);
+    for (int c = g0; c < g1; c += 32) {
+        const int m = min(32, g1 - c);
+        const int4 rec = lane < m ? __ldg(groups + c + lane) : make_int4(0, 0, 0, 0);
+        for (int j0 = 0; j0 < m; j0 += 8) {
+            T flow[8];
+            int rows[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                flow[j] = od_flow(__shfl_sync(ALL, rec.x, j0 + j));
+                rows[j] = (__shfl_sync(ALL, rec.y, j0 + j) >> 8) & 7;
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                if (j0 + j < m) add_row(acc, rows[j], flow[j]);
         }
     }
+    const T tot = ug >= 0 ? rows_sum(acc, __ldg(a.lane_uo_short + ug)) : T(0);
+    const T inv = div_rn(T(1), T(g1 - g0));
+
+    // this warp's groups in ascending id: P(od | up), the capacity sums,
+    // the logit's numerators and their sums, each turn's share of its phi
+    // slot; the next group's od flow is loaded a group ahead
+    unsigned mine = 0;  // the owners bits of this warp's accumulators
+    for (int bit = w; bit < 32; bit += W) mine |= 1u << bit;
+    const T neg_temp = T(a.neg_temp), omega = T(a.omega);
+    int k0 = __ldg(row + 1);
+    for (int c = g0; c < g1; c += 32) {
+        const int m = min(32, g1 - c);
+        const int4 rec = lane < m ? __ldg(groups + c + lane) : make_int4(0, 0, 0, 0);
+        int first = rec.y & 255;  // the chunk's entries before each group, inclusive
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(ALL, first, o);
+            if (lane >= o) first += v;
+        }
+        const int chunk = __shfl_sync(ALL, first, 31);
+        first -= rec.y & 255;
+        unsigned todo = __ballot_sync(ALL, (unsigned)rec.z & mine);
+        int j = todo ? __ffs(todo) - 1 : 0;
+        T w_od = od_flow(__shfl_sync(ALL, rec.x, j));
+        while (todo) {
+            todo &= todo - 1;
+            const int jn = todo ? __ffs(todo) - 1 : j;
+            const T w_next = od_flow(__shfl_sync(ALL, rec.x, jn));
+            const int code = __shfl_sync(ALL, rec.y, j);
+            const int k = k0 + __shfl_sync(ALL, first, j);
+            const int n = code & 255, short_rows = code >> 11;
+            const T pu = tot > T(0) ? div_rn(w_od, tot) : inv;
+            fresh(acc);
+            for (int i = 0; i < n; ++i) {
+                const int e = __ldg(a.lane_entry + k + i);
+                add_row(acc, (e >> 5) & 7, AT(cap, e & 31));
+            }
+            const T cap_eps = add_rn(rows_sum(acc, short_rows), T(1e-6));
+            fresh(acc);
+            for (int i = 0; i < n; ++i) {
+                const int e = __ldg(a.lane_entry + k + i), d = e & 31;
+                const T util = sub_rn(add_rn(__ldg(dist_util + k + i), AT(bn, d)),
+                                      div_rn(mul_rn(omega, AT(cap, d)), cap_eps));
+                const T z = exp_like_xla(mul_rn(neg_temp, util));
+                AT(zbuf, i) = z;
+                add_row(acc, (e >> 5) & 7, z);
+            }
+            const T zsum = rows_sum(acc, short_rows);
+            for (int i = 0; i < n; ++i) {
+                const int e = __ldg(a.lane_entry + k + i);
+                const int slot = (e & 31) * Q + ((e >> 5) & 7);
+                if ((slot & (W - 1)) == w) {
+                    T* x = &AT(phi, slot);
+                    *x = add_rn(*x, mul_rn(div_rn(AT(zbuf, i), zsum), pu));
+                }
+            }
+            j = jn;
+            w_od = w_next;
+        }
+        k0 += chunk;
+    }
+    __syncthreads();
+
+    // the unit's phi row, then its guard (check_fractions)
+    if (w != 0 || b_live >= a.B) return;
+    const int MM = M * M;
+    const int* phi_short = a.lane_phi_short + r * MM + u * M;
+    for (int d = 0; d < M; ++d) {
+        T l[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) l[q] = AT(phi, d * Q + q);
+        AT(phi, d * Q) = rows_sum(l, __ldg(phi_short + d));
+    }
+    guard_row(phi, Q * LANE_TILE, M,
+              static_cast<const T*>(a.offdiag_uniform) + (long long)r * MM + u * M,
+              static_cast<T*>(a.out) + (b * a.NR + r) * MM + u * M);
+#undef AT
+}
+
+template <typename T, int Q>
+int launch_lanes(const RoutingArgs* args, cudaStream_t stream) {
+    if (args->od_by_pair) {
+        const dim3 grid((unsigned)((args->B + 31) / 32), (unsigned)((args->P + 31) / 32));
+        turning_fractions_kernel_od_by_pair<T><<<grid, dim3(32, 8), 0, stream>>>(*args);
+    }
+    // the most shared memory an SM can give: its blocks are few warps each,
+    // and an SM should hold as many as its registers allow
+    const size_t smem = (size_t)args->shared_bytes;
+    cudaError_t err = cudaFuncSetAttribute(turning_fractions_kernel_lanes<T, Q>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && smem > 48 * 1024)
+        err = cudaFuncSetAttribute(turning_fractions_kernel_lanes<T, Q>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles = (args->B + LANE_TILE - 1) / LANE_TILE;
+    turning_fractions_kernel_lanes<T, Q><<<(unsigned)(args->NR * args->M * tiles),
+                                           dim3(LANE_TILE, (unsigned)args->lanes), smem,
+                                           stream>>>(*args);
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const RoutingArgs* args, void* stream) {
     if (args->B == 0 || args->NR == 0) return 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (args->lanes) {
+        switch (args->Q) {
+            case 5: return launch_lanes<T, 5>(args, s);
+            case 3: return launch_lanes<T, 3>(args, s);
+            case 1: return launch_lanes<T, 1>(args, s);
+            default: return (int)cudaErrorInvalidValue;
+        }
+    }
     const size_t smem = (size_t)args->shared_bytes;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -250,18 +538,20 @@ int launch(const RoutingArgs* args, void* stream) {
         if (err != cudaSuccess) return (int)err;
     }
     const dim3 grid((unsigned)args->NR, (unsigned)args->B);
-    turning_fractions_kernel<T><<<grid, (unsigned)args->threads, smem, (cudaStream_t)stream>>>(
-        *args);
+    turning_fractions_kernel<T><<<grid, (unsigned)args->threads, smem, s>>>(*args);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch for the whole batch: a block per (routed node, replica), on
-// `stream` (a cudaStream_t).  float tables in the first entry point, double
-// in the second; `args` points to a RoutingArgs block describing the
-// operands.  Returns
-// cudaGetLastError() after the launch: 0 when it was accepted.
+// The whole batch on `stream` (a cudaStream_t), by the design args->lanes
+// names: 0, the walk, a block per (routed node, replica); else the
+// streamed design, a block of args->lanes warps per (routed node's up
+// slot, 32 replicas), after the copy of per-replica od flows to [P, B]
+// where od_by_pair is set.  float tables in
+// the first entry point, double in the second; `args` points to a
+// RoutingArgs block describing the operands.  Returns cudaGetLastError()
+// after the launches: 0 when they were accepted.
 extern "C" int routing_turning_fractions(const void* args, void* stream) {
     return launch<float>(static_cast<const RoutingArgs*>(args), stream);
 }

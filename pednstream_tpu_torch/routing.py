@@ -17,11 +17,14 @@ product, so the sum is the JAX package's bit for bit (at one replica;
 GPU, where ``index_add_``/``scatter_add_`` use float atomics whose order
 changes from run to run.
 
-On CUDA tensors :func:`turning_fractions_step` is one launch of the
-hand-written kernel of ``csrc/routing.cu`` (``ops.routing``), which walks
-the same tables in the same order, each routed node's ranges found through
-``RoutingTables.node_offsets``; :func:`turning_fractions_step_plain` is its
-plain version, which CPU tensors take.
+On CUDA tensors :func:`turning_fractions_step` runs the hand-written
+kernels of ``csrc/routing.cu`` (``ops.routing``), which add the same
+members in the same order: below a warp of replicas a walk of the member
+tables, each routed node's ranges found through
+``RoutingTables.node_offsets``; from a warp on a stream of the entries in
+ascending id, a routed node's up slot to a warp, through the ``lane_*``
+codes (:func:`_lane_tables`).  :func:`turning_fractions_step_plain` is
+their plain version, which CPU tensors take.
 """
 
 from dataclasses import dataclass
@@ -253,11 +256,24 @@ class RoutingTables(_Tensors):
     # the kernel's block for a node reads only its own ranges
     node_offsets: torch.Tensor  # [NR + 1, 4] int64
 
+    # the streamed kernel's codes (``_lane_tables``), int32, entries and
+    # groups listed by unit, a routed node's up slot
+    lane_entry: torch.Tensor  # [K] down slot, GEMV row
+    lane_group: torch.Tensor  # [G, 4] od pair; entries, uo row, short rows; owners; 0
+    lane_unit: torch.Tensor  # [NR*M + 1, 3] first group, first entry, (node, up) group
+    lane_order: torch.Tensor  # [NR*M] units, most entries first
+    lane_down_link: torch.Tensor  # [NR, M] down link of each down slot, -1 none
+    lane_uo_short: torch.Tensor  # [UG] rows short of the table's width, a bit a row
+    lane_phi_short: torch.Tensor  # [NR*M*M] the same for the phi slots
+    lane_dist_util: torch.Tensor  # [K] dist_util by unit
+
     num_groups: int
     num_uo_groups: int
     num_entries: int
     num_routed: int
     node_max: Tuple[int, int, int, int]  # the most of each range a node holds
+    group_max: int  # the most entries a softmax group holds
+    unit_max: int  # the most entries a routed node's up slot holds
 
 
 
@@ -271,18 +287,23 @@ class RoutingTables(_Tensors):
 GEMV_LANES = {torch.float32: 4, torch.float64: 2}
 
 
+def _gemv_rows(K: int, lanes: int) -> np.ndarray:
+    """The row of each of K ids in a member table: its GEMV lane, or
+    ``lanes`` (the epilogue) from ``K - K % lanes`` on; row 0 with
+    ``lanes == 0``."""
+    if not lanes:
+        return np.zeros(K, dtype=np.int64)
+    tail = K - K % lanes
+    return np.where(np.arange(K) < tail, np.arange(K) % lanes, lanes)
+
+
 def _members(seg_ids: np.ndarray, num: int, lanes: int = 0) -> np.ndarray:
     """Padded member table ``[num, Q, L]``, -1 padding: with ``lanes == 0``
     one row per segment (``Q = 1``), its entries in ascending order, added
     left to right; else ``Q = lanes + 1`` rows, the entries of each GEMV
     lane and then of the epilogue, each in ascending order
     (:func:`segment_sum` combines them in XLA's order)."""
-    K = len(seg_ids)
-    if lanes:
-        tail = K - K % lanes
-        row = np.where(np.arange(K) < tail, np.arange(K) % lanes, lanes)
-    else:
-        row = np.zeros(K, dtype=np.int64)
+    row = _gemv_rows(len(seg_ids), lanes)
     Q = lanes + 1
     counts = np.zeros((num, Q), dtype=np.int64)
     np.add.at(counts, (seg_ids, row), 1)
@@ -308,6 +329,77 @@ def _node_offsets(node_of: List[np.ndarray], num_routed: int) -> np.ndarray:
             raise AssertionError(f"the {NODE_TABLES[j]} of a routed node are not contiguous")
         out[:, j] = np.searchsorted(nodes, np.arange(num_routed + 1))
     return out
+
+
+def _short_rows(members: np.ndarray) -> np.ndarray:
+    """``[S]`` bit q set where row q of a member table holds fewer members
+    than the table's width: the rows whose walk adds +0.0 once more."""
+    short = (members >= 0).sum(-1) < members.shape[-1]
+    return (short << np.arange(members.shape[1])).sum(-1).astype(np.int32)
+
+
+def _lane_tables(te_phi_c, te_group, te_uo_idx, te_down_link, uo_od, uo_group, node_offsets,
+                 members, M, lanes) -> dict:
+    """The codes by which ``csrc/routing.cu``'s streamed kernel adds the
+    entries in ascending id into per-(segment, GEMV row) accumulators, the
+    order of the member tables ``members`` (the group, uo group and phi
+    tables).
+
+    Its unit of work is a routed node's up slot: a softmax group (node,
+    od, up), a (node, up) group and a phi row all lie in one, and so does
+    the guard's row.  The tables list the entries and the groups unit by
+    unit, each in ascending id; a group's entries then lie together (they
+    share a (node, od) run, which holds no other entry of the unit).  The
+    build numbers softmax groups and uo entries alike, by first appearance,
+    so ``te_group == te_uo_idx`` (checked).  Per entry: its down slot and
+    GEMV row, in bits 0-4 and 5-7.  Per group: its od pair; its entries,
+    its uo entry's GEMV row and its short rows (``_short_rows``) in bits
+    0-7, 8-10 and 11-15; the phi accumulators its entries add into, bit
+    ``(down slot * Q + row) % 32`` each (a warp of the kernel works the
+    groups of the accumulators it owns); 0.  Per unit: its first group and
+    first entry, and its (node, up) group (-1 where the slot has no
+    entry)."""
+    K, G = len(te_group), len(uo_od)
+    NR, MM = len(node_offsets) - 1, M * M
+    if not np.array_equal(te_group, te_uo_idx):
+        raise AssertionError("softmax groups and uo entries are numbered apart")
+    if M > 32:
+        raise AssertionError(f"max_deg {M}: the codes hold slots of at most 32")
+    node = np.repeat(np.arange(NR), np.diff(node_offsets[:, 0]))
+    slot = te_phi_c % MM
+    unit = node * M + slot // M
+    by_unit = np.argsort(unit, kind="stable")
+    count = np.bincount(te_group, minlength=G)
+    group_unit = np.zeros(G, dtype=np.int64)
+    group_unit[te_group] = unit
+    groups = np.argsort(group_unit, kind="stable")
+    if (np.any(group_unit[te_group] != unit)
+            or not np.array_equal(te_group[by_unit], np.repeat(groups, count[groups]))):
+        raise AssertionError("a softmax group's entries do not lie together in its up slot")
+    units = np.arange(NR * M + 1)
+    first_g = np.searchsorted(group_unit[groups], units)
+    first_k = np.searchsorted(unit[by_unit], units)
+    ug = np.where(first_g[:-1] < first_g[1:], uo_group[groups[np.minimum(first_g[:-1], G - 1)]],
+                  -1)
+    down = -np.ones((NR, M), dtype=np.int64)
+    down[node, slot % M] = te_down_link
+    if np.any(down[node, slot % M] != te_down_link):
+        raise AssertionError("a down slot of a routed node names two links")
+    code = count | _gemv_rows(G, lanes) << 8 | _short_rows(members[0]).astype(np.int64) << 11
+    entry_rows = _gemv_rows(K, lanes)
+    owners = np.zeros(G, dtype=np.int64)
+    np.bitwise_or.at(owners, te_group, 1 << ((slot % M) * (lanes + 1) + entry_rows) % 32)
+    return dict(
+        lane_entry=((slot % M) | entry_rows << 5)[by_unit].astype(np.int32),
+        lane_group=np.stack([uo_od[groups], code[groups],
+                             owners[groups].astype(np.uint32).view(np.int32),
+                             np.zeros(G, dtype=np.int32)], 1).astype(np.int32),
+        lane_unit=np.stack([first_g, first_k, np.r_[ug, -1]], 1).astype(np.int32),
+        lane_order=np.argsort(-np.diff(first_k), kind="stable").astype(np.int32),
+        lane_down_link=down.astype(np.int32),
+        lane_uo_short=_short_rows(members[1]), lane_phi_short=_short_rows(members[2]),
+        by_unit=by_unit, group_max=int(count.max(initial=0)),
+        unit_max=int(np.diff(first_k).max(initial=0)))
 
 
 def build_routing_tables(
@@ -441,15 +533,24 @@ def build_routing_tables(
     node_offsets = _node_offsets([te_node, group_node, uo_node, uo_group_node], NR)
 
     lanes = 0 if exact_parity else GEMV_LANES[ftype]
+    members = (_members(te_group, G, lanes), _members(uo_group, UG, lanes),
+               _members(te_phi_c, NR * M * M, lanes))
+    te_uo_idx = np.array(te_uo_idx, dtype=np.int64)
+    te_down_link = np.array(te_down_link, dtype=np.int64)
+    uo_od = np.array(uo_od_l, dtype=np.int64)
+    lane = _lane_tables(te_phi_c, te_group, te_uo_idx, te_down_link, uo_od, uo_group,
+                        node_offsets, members, M, lanes)
+    group_max, unit_max = lane.pop("group_max"), lane.pop("unit_max")
+    lane["lane_dist_util"] = dist_util[lane.pop("by_unit")]
     t = lambda a: torch.as_tensor(a, device=device)
     return RoutingTables(
         te_dist=t(te_dist),
         te_group=t(te_group),
-        te_uo_idx=t(np.array(te_uo_idx, dtype=np.int64)),
-        te_down_link=t(np.array(te_down_link, dtype=np.int64)),
+        te_uo_idx=t(te_uo_idx),
+        te_down_link=t(te_down_link),
         te_phi_idx=t(te_phi_idx),
         group_dist_sum=t(group_dist_sum),
-        uo_od=t(np.array(uo_od_l, dtype=np.int64)),
+        uo_od=t(uo_od),
         uo_group=t(uo_group),
         uo_group_count=t(uo_group_count),
         routed_mask=t(routed_mask),
@@ -458,19 +559,22 @@ def build_routing_tables(
         beta=float(builder.beta),
         omega=float(builder.omega),
         routed_ids=t(routed_ids),
-        group_members=t(_members(te_group, G, lanes)),
-        uo_group_members=t(_members(uo_group, UG, lanes)),
+        group_members=t(members[0]),
+        uo_group_members=t(members[1]),
         te_phi_c=t(te_phi_c),
-        phi_c_members=t(_members(te_phi_c, NR * M * M, lanes)),
+        phi_c_members=t(members[2]),
         dist_util=t(dist_util),
         uo_inv_count=t(uo_inv_count),
         offdiag_uniform=t(offdiag_uniform),
         node_offsets=t(node_offsets),
+        **{name: t(x) for name, x in lane.items()},
         num_groups=G,
         num_uo_groups=UG,
         num_entries=len(te_rows),
         num_routed=NR,
         node_max=tuple(int(x) for x in np.diff(node_offsets, axis=0).max(axis=0)),
+        group_max=group_max,
+        unit_max=unit_max,
     )
 
 
@@ -609,8 +713,8 @@ def turning_fractions_step(
     The caller (``engine._node_solve``) re-solves just these rows; the
     other nodes keep ``phi_base``.
 
-    On CUDA tensors this is one launch of the kernel of
-    ``csrc/routing.cu`` (``ops.turning_fractions``); on CPU tensors it is
+    On CUDA tensors this runs the kernels of ``csrc/routing.cu``
+    (``ops.turning_fractions``); on CPU tensors it is
     :func:`turning_fractions_step_plain`.  Both give the same bits.  Any
     other device raises.
     """

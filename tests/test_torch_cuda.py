@@ -9,9 +9,9 @@ episode, the network families on the card against the CPU, one batched
 PPO iteration, the service layer (the MCP workflow, and two
 simulations stepped from two threads), and a link-sharded rollout over two
 ranks that share the card; the kernels of the step's hot ops -- the fast
-binomial and the routed turning fractions -- bitwise to their plain versions
-at every path's shape and table form, and a stochastic main-path rollout
-and an env episode bitwise equal with the kernels and with the plain
+binomial and the routed turning fractions (both of its designs) -- bitwise
+to their plain versions at every path's shape and table form, and a
+stochastic main-path rollout and an env episode bitwise equal with the kernels and with the plain
 versions from one seed.  Every test here needs a GPU, skips without one (decided in
 the ``cuda`` fixture), and is marked ``slow``, so the default tiers leave it
 out.  The file imports no JAX (nor does it need tests/conftest.py), so on
@@ -34,6 +34,7 @@ from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
 from pednstream_tpu_torch.ops import (PER_REPLICA_T, binom_fast, binom_fast_plain,
                                       fused_history_reads, fused_history_reads_plain,
                                       turning_fractions)
+from pednstream_tpu_torch.ops.routing import LANE_TILE
 from pednstream_tpu_torch.profiling import plain_hot_ops
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
 
@@ -681,16 +682,24 @@ def routed_scenarios():
 @pytest.mark.parametrize("name", ["env", "melbourne", "delft_f32", "delft_f64", "delft_exact",
                                   "grid10_exact"])
 @pytest.mark.parametrize("per_replica_od", [False, True])
-def test_routing_kernel_equals_plain_bitwise(cuda, routed_scenarios, name, per_replica_od):
+@pytest.mark.parametrize("batch", ["path", 1, LANE_TILE - 1, LANE_TILE, 77])
+def test_routing_kernel_equals_plain_bitwise(cuda, routed_scenarios, name, per_replica_od,
+                                             batch):
+    """At the path's own batch and at batches that take each design: one
+    replica, one short of a warp (the walk), a warp and a ragged 77 (the
+    streamed design); each call counted once, under its design."""
     scn, B = routed_scenarios[name]
+    B = B if batch == "path" else batch
     rt, M = scn.routing, scn.max_deg
     ops_ = routing_operands(scn, B, 5, per_replica_od, cuda)
     key = str(rt.dist_util.dtype).removeprefix("torch.")
-    before = turning_fractions.launches[key]
+    design = "lanes" if B >= LANE_TILE else "rows"
+    before = (turning_fractions.launches[key], dict(turning_fractions.launches_by_design))
     got = _routing.turning_fractions_step(rt, M, *ops_)
     want = _routing.turning_fractions_step_plain(rt, M, *ops_)
     torch.cuda.synchronize()
-    assert turning_fractions.launches[key] == before + 1
+    assert turning_fractions.launches[key] == before[0] + 1
+    assert turning_fractions.launches_by_design == {**before[1], design: before[1][design] + 1}
     assert_bits_equal(got, want)
 
 

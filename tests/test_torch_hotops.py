@@ -8,13 +8,16 @@ On CPU tensors both wrappers run their plain versions, so here:
   sampler under ``jax.jit``, fed the uniforms and normals that sampler
   draws from its key (edge cases: n = 0, 1, 16, 17, p = 0, 1, u on a cdf
   step);
-- the kernel's walk of the routing tables -- one block per (routed node,
-  replica) reading its node's ranges through ``node_offsets``, each
-  (segment, lane) walked to its first -1, the lanes combined in XLA's
-  order -- is written out in torch (:func:`kernel_walk`) and held bit for
-  bit to the plain version on the delft and 45_intersections tables in
-  every table form (float32 GEMV lanes, float64 lanes, exact parity) with
-  shared and per-replica od flows;
+- the kernel's two designs are written out in torch and held bit for bit
+  to the plain version on the delft and 45_intersections tables in every
+  table form (float32 GEMV lanes, float64 lanes, exact parity) with shared
+  and per-replica od flows: the walk of the routing tables -- one block
+  per (routed node, replica) reading its node's ranges through
+  ``node_offsets``, each (segment, lane) walked to its first -1, the lanes
+  combined in XLA's order (:func:`kernel_walk`) -- and the streamed design
+  -- each routed node's up slot on its own, its groups and entries in
+  ascending id through the ``lane_*`` codes into per-(segment, GEMV lane)
+  accumulators (:func:`kernel_stream`);
 - the dense turning fractions, now the compact rows placed at
   ``routed_ids``, are held to the JAX exact path on a routed golden
   scenario;
@@ -208,6 +211,85 @@ def kernel_walk(rt, M, density, recv_prev, cap_default, od_flow_t):
     return out
 
 
+def kernel_stream(rt, M, density, recv_prev, cap_default, od_flow_t):
+    """``csrc/routing.cu``'s streamed design written out in torch, every
+    replica at once: for each unit (a routed node's up slot) its down
+    slots' capacity and density terms; its groups' od flows in ascending
+    id into the (node, up) sum's accumulator of their GEMV row; then group
+    by group in ascending id the capacity sums, z and its sums, and each
+    entry's share into the accumulator of its phi slot and GEMV row, every
+    accumulator starting at -0.0 and adding +0.0 once where its row is
+    shorter than the table (the codes' short bits); the rows combined in
+    XLA's order; the guard of the unit's row."""
+    f = rt.dist_util.dtype
+    B, Q = density.shape[0], rt.group_members.shape[1]
+    od = od_flow_t.to(f)
+    od = od.expand(B, -1) if od.dim() == 1 else od
+    dens_all, rp_all, cd_all = density.to(torch.float32), recv_prev.to(f), cap_default.to(f)
+    out = torch.empty((B, rt.num_routed, M, M), dtype=f)
+    entry, group, unit = rt.lane_entry.tolist(), rt.lane_group.tolist(), rt.lane_unit.tolist()
+    dist_util = rt.lane_dist_util
+
+    def fresh(n):
+        return [torch.full((B,), -0.0, dtype=f) for _ in range(n)]
+
+    def rows_sum(rows, short):
+        lane = [v + 0.0 if short >> q & 1 else v for q, v in enumerate(rows)]
+        if Q == 5:
+            return ((lane[0] + lane[2]) + (lane[1] + lane[3])) + lane[4]
+        if Q == 3:
+            return (lane[0] + lane[1]) + lane[2]
+        return lane[0]
+
+    for r in range(rt.num_routed):
+        link = rt.lane_down_link[r].long()
+        real, safe = link >= 0, link.clamp(min=0)
+        rp = rp_all[:, safe]
+        cap = torch.where(real, torch.where(rp >= 0, rp, cd_all[:, safe]), 100.0)
+        dens = torch.where(real, dens_all[:, safe], 0.0)
+        bn = (rt.beta * (torch.clamp(dens - 2.0, min=0.0) / 8.0)).to(f)
+        for u in range(M):
+            (g0, k, ug), (g1, _, _) = unit[r * M + u], unit[r * M + u + 1]
+            acc = fresh(Q)
+            for p, code, _, _ in group[g0:g1]:
+                acc[code >> 8 & 7] = acc[code >> 8 & 7] + od[:, p]
+            tot = rows_sum(acc, rt.lane_uo_short[ug].item()) if ug >= 0 else None
+            inv = torch.tensor(1.0, dtype=f) / (g1 - g0)
+            phi = fresh(M * Q)
+            for p, code, owners, _ in group[g0:g1]:
+                n, short = code & 255, code >> 11
+                codes = [(e & 31, e >> 5 & 7) for e in entry[k:k + n]]
+                # the warps that own an accumulator of the group work it
+                assert owners & 0xFFFFFFFF == sum({1 << (d * Q + q) % 32 for d, q in codes})
+                pu = torch.where(tot > 0, od[:, p] / torch.where(tot > 0, tot, 1.0), inv)
+                acc = fresh(Q)
+                for d, lane in codes:
+                    acc[lane] = acc[lane] + cap[:, d]
+                cap_sum = rows_sum(acc, short) + 1e-6
+                acc, z = fresh(Q), []
+                for i, (d, lane) in enumerate(codes):
+                    util = (dist_util[k + i] + bn[:, d]) - (rt.omega * cap[:, d]) / cap_sum
+                    z.append(exp_like_xla(-rt.temp * util))
+                    acc[lane] = acc[lane] + z[-1]
+                zsum = rows_sum(acc, short)
+                for zi, (d, lane) in zip(z, codes):
+                    phi[d * Q + lane] = phi[d * Q + lane] + (zi / zsum) * pu
+                k += n
+            row = torch.stack([rows_sum(phi[d * Q:(d + 1) * Q],
+                                        rt.lane_phi_short[(r * M + u) * M + d].item())
+                               for d in range(M)], -1)
+            rowsum = row[:, :1]
+            for j in range(1, M):
+                rowsum = rowsum + row[:, j:j + 1]
+            need, pos = torch.abs(rowsum - 1.0) > 1e-3, rowsum > 1e-6
+            out[:, r, u] = torch.where(need & pos, row / rowsum,
+                                       torch.where(need, rt.offdiag_uniform[r, u], row))
+    return out
+
+
+KERNEL_MODELS = {"walk": kernel_walk, "stream": kernel_stream}
+
+
 @pytest.fixture(scope="module")
 def env_tables():
     """The 45_intersections env's OD-candidate tables (K = 18,616 turn
@@ -264,27 +346,31 @@ def check_node_offsets(rt, M):
     assert bool(((rt.uo_group >= start) & (rt.uo_group < end)).all())
 
 
+@pytest.mark.parametrize("model", KERNEL_MODELS)
 @pytest.mark.parametrize("per_replica_od", [False, True])
-def test_kernel_walk_is_the_plain_version_on_env_tables(env_tables, per_replica_od):
+def test_kernel_walk_is_the_plain_version_on_env_tables(env_tables, per_replica_od, model):
     scn = env_tables
     rt, M = scn.routing, scn.max_deg
     assert rt.group_members.shape[1] == 5 and rt.num_routed == 43
     check_node_offsets(rt, M)
     ops_ = routing_operands(scn, 3, 11, per_replica_od)
-    assert_bits_equal(kernel_walk(rt, M, *ops_), turning_fractions_step_plain(rt, M, *ops_))
+    assert_bits_equal(KERNEL_MODELS[model](rt, M, *ops_),
+                      turning_fractions_step_plain(rt, M, *ops_))
 
 
+@pytest.mark.parametrize("model", KERNEL_MODELS)
 @pytest.mark.parametrize("ftype,exact,Q", [(torch.float32, False, 5),
                                            (torch.float64, False, 3),
                                            (torch.float64, True, 1)])
-def test_kernel_walk_is_the_plain_version_on_delft_tables(ftype, exact, Q):
+def test_kernel_walk_is_the_plain_version_on_delft_tables(ftype, exact, Q, model):
     scn = delft(ftype, exact)
     rt, M = scn.routing, scn.max_deg
     assert rt.group_members.shape[1] == Q and rt.dist_util.dtype == ftype
     check_node_offsets(rt, M)
     for per_replica_od in (False, True):
         ops_ = routing_operands(scn, 4, 12, per_replica_od)
-        assert_bits_equal(kernel_walk(rt, M, *ops_), turning_fractions_step_plain(rt, M, *ops_))
+        assert_bits_equal(KERNEL_MODELS[model](rt, M, *ops_),
+                          turning_fractions_step_plain(rt, M, *ops_))
 
 
 def test_routing_wrapper_takes_the_plain_version_on_the_cpu():
