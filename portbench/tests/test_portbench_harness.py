@@ -92,6 +92,17 @@ def test_cell_files_found_by_name(workload):
         assert m["moves"] in reported
 
 
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_batch_fills_whole_routing_lane_tiles(workload):
+    """Every cell's batch is at least one routing lane tile and a whole
+    number of them: no cell times the routing kernel's walk design, or the
+    streamed design's partial last tile, by accident."""
+    from pednstream_tpu_torch.ops.routing import LANE_TILE
+
+    batch = int(spec.load_cell(workload).traffic["batch"])
+    assert batch >= LANE_TILE and batch % LANE_TILE == 0, batch
+
+
 def test_unknown_driver_and_metric_are_refused():
     with pytest.raises(FileNotFoundError):
         spec.traffic_module("no_such_driver")
