@@ -33,7 +33,7 @@ exits non-zero):
    plain version's time, the bound (each byte moved once, at the card's
    memory rate), the sector bound of the rings' layout (each distinct
    32-byte sector the scattered ring reads touch) and the shares reached.
-3b. hot ops: the hand kernels of the step's two eager hot spots against
+3b. hot ops: the hand kernels of the step's three eager hot spots against
    their plain versions on the same CUDA operands, bitwise: the fast
    binomial (``ops.binom_fast``, ``csrc/binom.cu``) at the main path's three
    call sites (real operands: release, activity, reverse occupancy) and at
@@ -48,7 +48,14 @@ exits non-zero):
    version's time and the bound (bytes this data needs over the memory
    rate against float operations over the float32 or float64 rate); where
    the batch takes the routing kernel's streamed design, its walk is held
-   and timed on the same operands too.  Then
+   and timed on the same operands too.  The node solve (``ops.node_solve``,
+   ``csrc/node_solve.cu``) at the main path's and the env episode's real
+   operands, and random operands at every other form the paths give it:
+   delft at B=1024, the served melbourne at B=1, grid_50x50 at the sweeps'
+   B=512 and the window's B=1, the 108,240-link grid of link_sharded_scale,
+   float64 flows, and exact parity's dense phi (golden grid10 and the het
+   batch in float64, butterfly_scC in float32); each output bit for bit,
+   the same times against its bound.  Then
    100 stochastic main-path steps and 50 env RL steps, each with the kernels
    and with the plain versions from one seed: every state leaf (and the
    env's observations and rewards) bit for bit.
@@ -590,7 +597,9 @@ HOT_KERNELS = {
     "turning_fractions": {"source": "pednstream_tpu_torch/csrc/routing.cu",
                           "replaces": "pednstream_tpu/routing.py:405"},
     "binom_fast": {"source": "pednstream_tpu_torch/csrc/binom.cu",
-                   "replaces": "pednstream_tpu/engine.py:109"}}
+                   "replaces": "pednstream_tpu/engine.py:109"},
+    "node_solve": {"source": "pednstream_tpu_torch/csrc/node_solve.cu",
+                   "replaces": "pednstream_tpu/engine.py:446,458"}}
 # float operations per element of the fast binomial: the 16-term walk (an
 # add, a subtract and three multiplies per term, one add to the count, the
 # power counted as one) and the Gaussian branch
@@ -696,6 +705,77 @@ def hold_hot_kernel(card, kernel, key, label, fn, plain, ops, bound, plain_iters
             "operands": label}
 
 
+def hold_node_solve(card, label, scn, ops, per_replica, plain_iters) -> dict:
+    """``hold_hot_kernel`` for the node solve on ``scn`` and ``ops`` (the
+    wrapper's arguments after the scenario): one launch under the flows'
+    dtype, its four outputs bitwise to the plain version's, then the times
+    beside the bound (``portbench/bounds/node_solve.py``: the rows and
+    virtual vectors moved once, ``phi_base`` once, the live compact rows
+    per replica, or a dense phi's valid pairs per replica; the demand and
+    virtual receiving of the virtual nodes per replica where
+    ``per_replica``).  Prints and returns the case."""
+    import torch
+    from pednstream_tpu_torch.ops import node_solve, node_solve_plain
+    from portbench.bounds.node_solve import bytes_and_ops
+
+    S, phi = ops[2], ops[5]
+    key = str(S.dtype).removeprefix("torch.")
+    before = dict(node_solve.launches)
+    got = node_solve(scn, *ops)
+    want = node_solve_plain(scn, *ops)
+    torch.cuda.synchronize()
+    if node_solve.launches != {**before, key: before[key] + 1}:
+        raise AssertionError(f"node_solve ({label}) did not launch its {key} kernel once")
+    err = max((a.double() - b.double()).abs().max().item() for a, b in zip(got, want))
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"node_solve kernel != plain ({label}): max abs err {err}")
+    moved, n_ops = bytes_and_ops(scn, S.shape[0], per_replica, S.element_size(),
+                                 phi is not None)
+    rate = FP32_OPS_PER_S if S.element_size() == 4 else FP64_OPS_PER_S
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, n_ops / rate * 1e3
+    bound = {"bound_bytes": moved, "bound_ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    case = {"device_ms": device_ms(lambda: node_solve(scn, *ops)),
+            "host_ms": host_us(lambda: node_solve(scn, *ops)) / 1e3,
+            "plain_ms": cuda_ms(lambda: node_solve_plain(scn, *ops), iters=plain_iters,
+                                warmup=1), **bound}
+    emit("hot_kernel_vs_plain", kernel="node_solve", dtype=key, operands=label,
+         bitwise_equal=True, max_abs_err=err, **case,
+         share_of_bound=bound["bound_ms"] / case["device_ms"], card=card)
+    return {"max_abs_err": err, "ms": case["device_ms"], **case, "library_ms": None,
+            "operands": label}
+
+
+def node_solve_operands(scn, B, rng, dense=False):
+    """Random operands of the node solve on ``scn`` at ``B`` replicas, in
+    its flow dtype: whole sending and receiving flows with zeros and ties,
+    random compact turning fractions where routed (or, where ``dense``, the
+    exact path's dense phi: ``phi_base`` with random rows at the routed
+    nodes' valid slots), the scenario's parameters, a mid-run step."""
+    import numpy as np
+    import torch
+
+    E, f = scn.n_links, scn.ftype
+    S = np.floor(rng.uniform(0, 30, (B, E)))
+    S[rng.uniform(size=S.shape) < 0.3] = 0.0
+    R = np.floor(rng.uniform(0, 40, (B, E)))
+    R[rng.uniform(size=R.shape) < 0.2] = 0.0
+    phi_c = phi = None
+    if scn.routing is not None:
+        NR, M = scn.routing.num_routed, scn.max_deg
+        phi_c = torch.from_numpy(rng.uniform(0, 1, (B, NR, M, M))).to("cuda", f)
+    if dense:
+        ep = scn.engine_params
+        phi = ep.phi_base.expand(B, *ep.phi_base.shape[-3:]).clone()
+        if phi_c is not None:
+            ids = scn.routing.routed_ids
+            valid = scn.slot_valid[ids]
+            phi[:, ids] = phi_c * (valid[:, :, None] & valid[:, None, :])
+        phi_c = None
+    S, R = (torch.from_numpy(x).to("cuda", f) for x in (S, R))
+    return [scn.engine_params, scn.simulation_steps // 3, S, R, phi_c, phi]
+
+
 @contextlib.contextmanager
 def routing_walk():
     """The routing kernel's walk at any batch while entered: the streamed
@@ -754,6 +834,7 @@ def phase_hot_ops(card: str, scn) -> dict:
     import torch
     from pednstream_tpu_torch import (NetworkEnvGenerator, build_scenario, simulate_batched)
     from pednstream_tpu_torch.env import PedNetParallelEnv
+    from pednstream_tpu_torch.examples import link_sharded_scale
     from pednstream_tpu_torch.golden import fixture_args
     from pednstream_tpu_torch.ops import binom_fast, binom_fast_plain
     from pednstream_tpu_torch.profiling import ZOO_PPO, plain_hot_ops
@@ -764,7 +845,7 @@ def phase_hot_ops(card: str, scn) -> dict:
 
     # the main path, kernels then plain versions from one seed; its last
     # step's binomial and routing operands kept
-    finals, binom_calls, routing_calls = [], [], []
+    finals, binom_calls, routing_calls, node_calls = [], [], [], []
     for plain in (False, True):
         g = torch.Generator(device="cuda").manual_seed(SEED + 2)
         st = scn.init_state(MAIN["batch"])
@@ -773,7 +854,8 @@ def phase_hot_ops(card: str, scn) -> dict:
             st = simulate_batched(scn, scn.engine_params, st, HOT_OPS["main_steps"] - 1, gen=g,
                                   stochastic=True)
             with captured("binom_fast", binom_calls), \
-                    captured("turning_fractions_step", routing_calls):
+                    captured("turning_fractions_step", routing_calls), \
+                    captured("_node_solve", node_calls):
                 st = simulate_batched(scn, scn.engine_params, st, 1, gen=g, stochastic=True)
         torch.cuda.synchronize()
         hot = {n: dict(kernel_counts()[n]) for n in HotSteps.want}
@@ -789,7 +871,7 @@ def phase_hot_ops(card: str, scn) -> dict:
         raise AssertionError(f"main path with kernels != plain versions: {bad}")
     emit("hot_main_path_bitwise", steps=HOT_OPS["main_steps"], batch=MAIN["batch"],
          binomial_launches=3 * HOT_OPS["main_steps"], routing_launches=HOT_OPS["main_steps"],
-         bitwise_equal=True, card=card)
+         node_solve_launches=HOT_OPS["main_steps"], bitwise_equal=True, card=card)
 
     # the fast binomial: the main path's three call sites at its real
     # operands, then random operands at the other paths' shapes
@@ -818,7 +900,7 @@ def phase_hot_ops(card: str, scn) -> dict:
     # step's routing operands kept
     env = PedNetParallelEnv(ENV["dataset"], od_randomize=True, device="cuda")
     core, B = env.core, ENV["batch"]
-    runs, env_calls = [], []
+    runs, env_calls, env_node_calls = [], [], []
     for plain in (False, True):
         g = torch.Generator(device="cuda").manual_seed(SEED + 3)
         eps = randomize_engine_params_batched(env.scn, g, B)
@@ -832,9 +914,11 @@ def phase_hot_ops(card: str, scn) -> dict:
                 acts = {a: lo + (hi - lo) * torch.rand((B,) + lo.shape, generator=g,
                                                       device="cuda")
                         for a, (lo, hi) in bounds.items()}
-                last = i == HOT_OPS["env_rl_steps"] - 1
-                with captured("turning_fractions_step", env_calls) if last and not plain \
-                        else contextlib.nullcontext():
+                keep = i == HOT_OPS["env_rl_steps"] - 1 and not plain
+                with (captured("turning_fractions_step", env_calls) if keep
+                      else contextlib.nullcontext()), \
+                        (captured("_node_solve", env_node_calls) if keep
+                         else contextlib.nullcontext()):
                     states, obs, rewards, _ = core.batch_step_randomized(states, acts, eps, g)
         torch.cuda.synchronize()
         if not plain:
@@ -853,15 +937,56 @@ def phase_hot_ops(card: str, scn) -> dict:
     record[("turning_fractions", "float32")] = hold_routing(
         card, "float32", "env, real (RL step 50)", rt, M, ops, 5)
 
+    # the node solve at the main path's and the env episode's real operands
+    # (its worlds drawn per replica), delft at B=1024 and the served
+    # melbourne at B=1, random
+    gen = NetworkEnvGenerator()
+    delft_scn = build_scenario(**gen.scenario_args("delft"), device="cuda")
+    (_, *ops), = node_calls[:1]
+    record[("node_solve", "float32")] = hold_node_solve(card, "main path, real", scn, ops,
+                                                        False, 5)
+    (escn, *ops), = env_node_calls
+    hold_node_solve(card, "env, real (RL step 50)", escn, ops, True, 5)
+    hold_node_solve(card, "delft B=1024, random", delft_scn,
+                    node_solve_operands(delft_scn, 1024, rng), False, 5)
+    hold_node_solve(card, "served melbourne B=1, random", scn,
+                    node_solve_operands(scn, 1, rng), False, 5)
+    # every other form the paths give it, random operands: grid_50x50's
+    # 9,800 links at the sweeps' B=512 and the window's B=1, the 108,240-link
+    # grid of link_sharded_scale (its node solve takes all links) at its
+    # batch, float64 flows on the fast path, and the exact path's dense phi
+    # with the column sums left to right: golden grid10 and the het
+    # butterfly_scC batch in float64, butterfly_scC in float32
+    grid = build_scenario(**gen.scenario_args("grid_50x50"), device="cuda")
+    for batch in (512, 1):
+        hold_node_solve(card, f"grid_50x50 B={batch}, random", grid,
+                        node_solve_operands(grid, batch, rng), False, 3)
+    big = link_sharded_scale.build(EXAMPLES["sharded_n"], device="cuda")
+    hold_node_solve(card, f"{big.n_links:,}-link grid B={EXAMPLES['sharded_batch']}, random",
+                    big, node_solve_operands(big, EXAMPLES["sharded_batch"], rng), False, 3)
+    del big
+    butterfly = gen.scenario_args("butterfly_scC")
+    butterfly["params"]["seed"] = GPU_VS_CPU["demand_seed"]
+    golden, _, _ = fixture_args(ROOT / "tests" / "golden" / "grid10.npz")
+    golden_scn = build_scenario(**golden, ftype=torch.float64, exact_parity=True, device="cuda")
+    het_scn = build_scenario(**butterfly, ftype=torch.float64, exact_parity=True, device="cuda")
+    record[("node_solve", "float64")] = hold_node_solve(
+        card, "golden grid10 float64, dense phi, B=1, random", golden_scn,
+        node_solve_operands(golden_scn, 1, rng, dense=True), False, 3)
+    hold_node_solve(card, "het butterfly_scC float64, dense phi, B=6, random", het_scn,
+                    node_solve_operands(het_scn, 6, rng, dense=True), False, 3)
+    for exact in (False, True):
+        fscn = build_scenario(**butterfly, ftype=torch.float64 if not exact else torch.float32,
+                              exact_parity=exact, device="cuda")
+        hold_node_solve(card, f"butterfly_scC {str(fscn.ftype)[6:]}"
+                        f"{', dense phi' if exact else ''}, B=256, random", fscn,
+                        node_solve_operands(fscn, 256, rng, dense=exact), False, 3)
+
     # every other table form at its path's batch, random operands: the env's
     # with a shared od flow, the served melbourne, the trainers' env, the
     # zoo pipeline's butterfly_scC, delft (examples), grid_50x50 (sweeps,
     # window), the het float64 batch, a routed golden scenario (float64 one
     # row per segment: the dense path's kernel)
-    gen = NetworkEnvGenerator()
-    butterfly = gen.scenario_args("butterfly_scC")
-    butterfly["params"]["seed"] = GPU_VS_CPU["demand_seed"]
-    golden, _, _ = fixture_args(ROOT / "tests" / "golden" / "grid10.npz")
     tables = [("env, shared od", env.scn, B),
               # the benchmark's env batch, od flows a column of a [B, P, T+1]
               # table as the env passes them
@@ -871,14 +996,11 @@ def phase_hot_ops(card: str, scn) -> dict:
               ("trainer env", None, SAC_TRAIN["num_envs"]),
               ("butterfly_scC", build_scenario(**butterfly, device="cuda"), ZOO_TRAIN_SHAPE[0]),
               ("butterfly_scC", None, 1),
-              ("delft", build_scenario(**gen.scenario_args("delft"), device="cuda"), 1),
-              ("grid_50x50", build_scenario(**gen.scenario_args("grid_50x50"), device="cuda"),
-               512),
+              ("delft", delft_scn, 1),
+              ("grid_50x50", grid, 512),
               ("grid_50x50", None, 1),
-              ("het butterfly_scC float64", build_scenario(
-                  **butterfly, ftype=torch.float64, exact_parity=True, device="cuda"), 6),
-              ("golden grid10 float64", build_scenario(
-                  **golden, ftype=torch.float64, exact_parity=True, device="cuda"), 1)]
+              ("het butterfly_scC float64", het_scn, 6),
+              ("golden grid10 float64", golden_scn, 1)]
     last = None
     for label, tscn, batch in tables:
         tscn = tscn or last
@@ -1001,10 +1123,12 @@ def phase_gpu_vs_cpu(card: str) -> int:
 
 def kernel_counts() -> dict:
     """The launch-count dict of each kernel wrapper, by kernel name."""
-    from pednstream_tpu_torch.ops import binom_fast, fused_history_reads, turning_fractions
+    from pednstream_tpu_torch.ops import (binom_fast, fused_history_reads, node_solve,
+                                          turning_fractions)
 
     return {"fused_history_reads": fused_history_reads.launches,
-            "turning_fractions": turning_fractions.launches, "binom_fast": binom_fast.launches}
+            "turning_fractions": turning_fractions.launches, "binom_fast": binom_fast.launches,
+            "node_solve": node_solve.launches}
 
 
 # the hot-op launches of the path being run: one entry per stretch since a
@@ -1029,12 +1153,15 @@ class HotSteps:
     scenario (under its tables' dtype); per stochastic step with the fast
     sampler, one binomial launch for the release, one for the activity stay
     unless the scenario decided it zero at build time, one for the reverse
-    occupancy.  ``install()`` wraps ``engine.step_fn`` and the modules that
+    occupancy; one node solve launch per step of every classic solve (the
+    fast path and exact parity's dense phi; not the "optimal" solve's host
+    LP), under the flow dtype.  ``install()`` wraps ``engine.step_fn`` and the modules that
     import it by name; the steps of spawned ranks count in their own
     process."""
 
     lock = threading.Lock()
-    want = {"turning_fractions": {"float32": 0, "float64": 0}, "binom_fast": {"float32": 0}}
+    want = {"turning_fractions": {"float32": 0, "float64": 0}, "binom_fast": {"float32": 0},
+            "node_solve": {"float32": 0, "float64": 0}}
     installed = False
 
     @classmethod
@@ -1054,6 +1181,8 @@ class HotSteps:
                 cls.want["turning_fractions"][key] += 1
             if stochastic and scn.binomial_mode == "fast":
                 cls.want["binom_fast"]["float32"] += 2 if scn.act_statically_zero else 3
+            if scn.assign_flows_type != "optimal":
+                cls.want["node_solve"][str(scn.ftype).removeprefix("torch.")] += 1
 
     @classmethod
     def install(cls) -> None:
@@ -2967,9 +3096,10 @@ def main() -> int:
                         "launches": sum(per_path.values()), "launches_per_path": per_path,
                         **rec})
     if not (hot.get(("binom_fast", "float32"), {}).get("main")
-            and hot.get(("turning_fractions", "float32"), {}).get("env")):
-        raise AssertionError(f"the main path's binomial or the env path's routing kernel "
-                             f"never launched: {hot}")
+            and hot.get(("turning_fractions", "float32"), {}).get("env")
+            and hot.get(("node_solve", "float32"), {}).get("main")):
+        raise AssertionError(f"the main path's binomial or node solve, or the env path's "
+                             f"routing kernel never launched: {hot}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

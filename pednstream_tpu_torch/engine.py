@@ -28,6 +28,9 @@ Two modes share the step:
   barriers have no counterpart here; this mode uses no ``addcmul``,
   ``lerp`` or ``torch.compile``.
 
+The node solve (``_node_solve``: :func:`ops.node_solve`) is one launch of
+a CUDA kernel on the card, on the fast path and on the exact-parity dense
+phi alike, and its plain version (``ops.node_solve_plain``) on the CPU.
 The ``"optimal"`` node solve runs the host LP (``lp_solver``) on the dense
 phi, one round trip to the host per step.
 
@@ -56,14 +59,14 @@ trace shows and which cost one flag check each otherwise.
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from .fd import link_flow_kv, speed_from_density
 from .ops import fused_history_reads
 from .ops.binom import binom_fast
 from .ops.ncurve import reciprocal_f32
-from .routing import seq_sum, turning_fractions_dense, turning_fractions_step
+from .ops.node_solve import node_solve as _node_solve
+from .routing import turning_fractions_dense, turning_fractions_step
 from .state import EngineParams, NetworkState, StepOutputs
 from .topology import FD_TYPES
 from .tracing import span
@@ -264,92 +267,6 @@ def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, hist,
     # reverse-sending subtraction (link.py:407-416); separators skip it
     return torch.where(scn.is_separator, torch.clamp(rf, min=0.0),
                        torch.clamp(rf - _rev(scn, S_all), min=0.0))
-
-
-def _classic_solve(dem_mat, r_pad, exact: bool = False):
-    """'classic' proportional supply allocation (node.py:272-300) over any
-    leading axes: ``dem_mat [..., M, M]``, ``r_pad [..., M]``.  ``exact``
-    adds the column sums left to right (the sums of the floored ``g`` are
-    of whole numbers, exact in any order)."""
-    if exact:
-        col_sums = seq_sum(dem_mat, -2).unsqueeze(-2)
-    else:
-        col_sums = dem_mat.sum(dim=-2, keepdim=True)
-    share = dem_mat / torch.where(col_sums != 0, col_sums, 1e-5)
-    supply = r_pad.unsqueeze(-2) * share
-    g = torch.floor(torch.minimum(dem_mat, supply))
-    q_in = torch.clamp(g.sum(dim=-1), min=0.0)  # outflow of incoming slot i
-    q_out = torch.clamp(g.sum(dim=-2), min=0.0)  # inflow to outgoing slot j
-    return q_in, q_out
-
-
-def _host_lp(scn, s_pad, r_pad, phi):
-    """The ``"optimal"`` LP solve (node.py:248-271) on the host, replica by
-    replica, as the JAX engine's ``pure_callback`` runs it."""
-    phi = phi.expand(s_pad.shape[:1] + phi.shape[-3:])
-    s_np, r_np, phi_np = (x.cpu().numpy() for x in (s_pad, r_pad, phi))
-    q = [scn.optimal_solver(s_np[b], r_np[b], phi_np[b]) for b in range(s_np.shape[0])]
-    q_in, q_out = (torch.as_tensor(np.stack([qq[i] for qq in q]), device=s_pad.device)
-                   .to(s_pad.dtype) for i in (0, 1))
-    return q_in, q_out
-
-
-def _node_solve(scn, ep: EngineParams, t, S, R, phi_c=None, phi=None):
-    """Padded merge/diverge over all nodes at once (node.py:164-300).
-
-    Gathers per-node sending/receiving vectors ``[B, N, M]`` (with the
-    origin-demand and destination big-M virtual slot 0) and solves
-    OneToOne nodes by the crossing rule.  The others take the classic
-    allocation, on one of:
-
-    - ``phi [B, N, M, M]``, dense turning fractions (exact-parity mode, with
-      the column sums added in order; the ``"optimal"`` solve sends this
-      phi to the host LP instead);
-    - ``phi_base``, with the NR routed nodes re-solved on their dynamic
-      ``phi_c [B, NR, M, M]`` and written over the result.
-
-    The flows are then gathered back to the link axis.
-    """
-    B = S.shape[0]
-    N, M = scn.n_nodes, scn.max_deg
-    demand_t = _column(ep.demand, t - 1)  # node.py:176; [N] or per replica [B, N]
-
-    s_pad = torch.where(scn.in_valid, S[:, scn.in_safe], 0.0)
-    s_pad = torch.where(scn.virt_slot, demand_t[..., None], s_pad)
-    s_pad = torch.where(scn.slot_valid, s_pad, 0.0)
-    r_pad = torch.where(scn.out_valid, R[:, scn.out_safe], 0.0)
-    r_pad = torch.where(scn.virt_slot, ep.virt_recv[..., None], r_pad)
-    r_pad = torch.where(scn.slot_valid, r_pad, 0.0)
-
-    if phi is not None and scn.assign_flows_type == "optimal":
-        q_in_reg, q_out_reg = _host_lp(scn, s_pad, r_pad, phi)
-    elif phi is not None:
-        q_in_reg, q_out_reg = _classic_solve(phi * s_pad.unsqueeze(-1), r_pad,
-                                             exact=scn.exact_parity)
-    else:
-        q_in_reg, q_out_reg = _classic_solve(ep.phi_base * s_pad.unsqueeze(-1), r_pad)
-    if phi_c is not None:
-        ids = scn.routing.routed_ids
-        q_in_c, q_out_c = _classic_solve(phi_c * s_pad[:, ids].unsqueeze(-1), r_pad[:, ids])
-        q_in_reg[:, ids] = q_in_c
-        q_out_reg[:, ids] = q_out_c
-
-    # OneToOne crossing solve (node.py:230-242): slot k <-> slot 1-k
-    s2, r2 = s_pad[..., :2], r_pad[..., :2]
-    pad = torch.zeros((B, N, M - 2), dtype=s_pad.dtype, device=s_pad.device)
-    q_in_oto = torch.cat([torch.minimum(s2, r2.flip(-1)), pad], dim=-1)
-    q_out_oto = torch.cat([torch.minimum(s2.flip(-1), r2), pad], dim=-1)
-    otoo = scn.is_otoo[:, None]
-    q_in = torch.where(otoo, q_in_oto, q_in_reg)
-    q_out = torch.where(otoo, q_out_oto, q_out_reg)
-
-    # write-back: each directed link is incoming to exactly one node and
-    # outgoing from exactly one node (node.py:146-162)
-    outflow_e = q_in.reshape(B, N * M)[:, scn.end_flat]
-    inflow_e = q_out.reshape(B, N * M)[:, scn.start_flat]
-    virt_dep = torch.where(scn.has_virtual, q_in[..., 0], 0.0)
-    virt_arr = torch.where(scn.has_virtual, q_out[..., 0], 0.0)
-    return inflow_e, outflow_e, virt_dep, virt_arr
 
 
 def _div_by(scn, x, c):

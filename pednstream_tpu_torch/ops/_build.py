@@ -25,7 +25,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "pednstream_tpu_torch"
-SOURCES = tuple(_PKG / "csrc" / name for name in ("ncurve.cu", "routing.cu", "binom.cu"))
+SOURCES = tuple(_PKG / "csrc" / name
+                for name in ("ncurve.cu", "routing.cu", "binom.cu", "node_solve.cu"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
@@ -123,8 +124,10 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P]  # the argument block, stream
     # nf, p, its period, u, z, out, n, stream
     lib.binom_fast.argtypes = [_P, _P, _LL, _P, _P, _P, _LL, _P]
+    for fn in (lib.node_solve, lib.node_solve_f64):
+        fn.argtypes = [_P, _P]  # the argument block, stream
     for fn in (lib.ncurve_history_reads, lib.ncurve_history_reads_f64,
                lib.routing_turning_fractions, lib.routing_turning_fractions_f64,
-               lib.binom_fast):
+               lib.binom_fast, lib.node_solve, lib.node_solve_f64):
         fn.restype = _I
     return lib

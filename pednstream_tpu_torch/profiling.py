@@ -28,7 +28,7 @@ JSON line: wall ms per step (profiler off), device kernels and
 device self time), the device idle share of the profiled stretch (one
 minus the union of its device intervals over its host wall), and the
 kernels with the most device time, each with its count and ms per step.
-``--with-plain`` adds the same numbers for the step with the two hot ops'
+``--with-plain`` adds the same numbers for the step with the three hot ops'
 plain versions in place of their kernels (:func:`plain_hot_ops`: the step
 as it was before them) and both timed in turns in the one process.
 On a CPU device there are no kernels; the counts read 0.
@@ -304,22 +304,23 @@ def ppo_profile(dataset: str, obs_mode: str, action_gap: int, history_window: in
 
 @contextlib.contextmanager
 def plain_hot_ops():
-    """The engine step's two hot ops through their plain PyTorch versions
-    (``ops.binom_fast_plain``, ``routing.turning_fractions_step_plain``)
-    instead of their kernels while it is entered: the step as it ran before
-    the kernels, for a comparison in one process.  It swaps module
-    attributes, so no other thread may step meanwhile."""
+    """The engine step's three hot ops through their plain PyTorch versions
+    (``ops.binom_fast_plain``, ``routing.turning_fractions_step_plain``,
+    ``ops.node_solve_plain``) instead of their kernels while it is entered:
+    the step as it ran before the kernels, for a comparison in one process.
+    It swaps module attributes, so no other thread may step meanwhile."""
     from . import engine
-    from .ops import binom_fast_plain
+    from .ops import binom_fast_plain, node_solve_plain
     from .routing import turning_fractions_step_plain
 
-    saved = (engine.binom_fast, engine.turning_fractions_step)
+    saved = (engine.binom_fast, engine.turning_fractions_step, engine._node_solve)
     engine.binom_fast = binom_fast_plain
     engine.turning_fractions_step = turning_fractions_step_plain
+    engine._node_solve = node_solve_plain
     try:
         yield
     finally:
-        engine.binom_fast, engine.turning_fractions_step = saved
+        engine.binom_fast, engine.turning_fractions_step, engine._node_solve = saved
 
 
 def run(path: str, device="cuda", with_plain: bool = False, **overrides) -> dict:

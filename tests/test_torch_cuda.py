@@ -9,10 +9,11 @@ episode, the network families on the card against the CPU, one batched
 PPO iteration, the service layer (the MCP workflow, and two
 simulations stepped from two threads), and a link-sharded rollout over two
 ranks that share the card; the kernels of the step's hot ops -- the fast
-binomial and the routed turning fractions (both of its designs) -- bitwise
-to their plain versions at every path's shape and table form, and a
-stochastic main-path rollout and an env episode bitwise equal with the kernels and with the plain
-versions from one seed.  Every test here needs a GPU, skips without one (decided in
+binomial, the routed turning fractions (both of its designs) and the node
+solve (both of its designs) -- bitwise to their plain versions at every
+path's shape and table form, and a stochastic main-path rollout, a delft
+rollout and an env episode bitwise equal with the kernels and with the
+plain versions from one seed.  Every test here needs a GPU, skips without one (decided in
 the ``cuda`` fixture), and is marked ``slow``, so the default tiers leave it
 out.  The file imports no JAX (nor does it need tests/conftest.py), so on
 a machine with a card it runs as
@@ -33,7 +34,7 @@ from pednstream_tpu_torch.env import PedNetParallelEnv
 from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
 from pednstream_tpu_torch.ops import (PER_REPLICA_T, binom_fast, binom_fast_plain,
                                       fused_history_reads, fused_history_reads_plain,
-                                      turning_fractions)
+                                      node_solve, node_solve_plain, turning_fractions)
 from pednstream_tpu_torch.ops.routing import LANE_TILE
 from pednstream_tpu_torch.profiling import plain_hot_ops
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
@@ -274,9 +275,12 @@ def test_golden_fixture_on_cuda(cuda):
     """butterfly's golden fixture (routed turning fractions) in float64
     exact-parity mode on the card, through the float64 kernel: every
     recorded field within 1e-5 (tests/test_golden_parity.py's target)."""
-    before = fused_history_reads.launches["float64"]
-    errors, _, T = golden_errors(Path(__file__).parent / "golden" / "butterfly.npz", cuda)
-    assert fused_history_reads.launches["float64"] - before == T - 1
+    before = (fused_history_reads.launches["float64"], node_solve.launches["float64"])
+    errors, scn, T = golden_errors(Path(__file__).parent / "golden" / "butterfly.npz", cuda)
+    assert fused_history_reads.launches["float64"] - before[0] == T - 1
+    # the node solve kernel on the dense phi, unless the "optimal" host LP
+    solves = 0 if scn.assign_flows_type == "optimal" else T - 1
+    assert node_solve.launches["float64"] - before[1] == solves
     assert errors.keys() == FIELDS.keys()
     bad = {k: v for k, v in errors.items() if not v <= TOL}
     assert not bad, bad
@@ -706,13 +710,15 @@ def test_routing_kernel_equals_plain_bitwise(cuda, routed_scenarios, name, per_r
 def test_stochastic_main_path_bitwise_with_kernels_and_plain(cuda):
     """melbourne, 1024 replicas, H=16, the fast sampler, 100 stochastic steps
     from one seed: with the kernels (3 binomial and 1 routing launch per
-    step) and with the plain versions, every state leaf bit for bit."""
+    step) and with the plain versions, every state leaf bit for bit; the
+    node solve kernel launches once a step."""
     scn = build_scenario(**NetworkEnvGenerator().scenario_args("melbourne"),
                          history_window=16, binomial_mode="fast", device=cuda)
     finals = []
     for plain in (False, True):
         gen = torch.Generator(device=cuda).manual_seed(7)
-        counts = (binom_fast.launches["float32"], turning_fractions.launches["float32"])
+        counts = (binom_fast.launches["float32"], turning_fractions.launches["float32"],
+                  node_solve.launches["float32"])
         if plain:
             with plain_hot_ops():
                 final, _ = simulate(scn, scn.engine_params, scn.init_state(1024), 100, gen=gen,
@@ -722,8 +728,9 @@ def test_stochastic_main_path_bitwise_with_kernels_and_plain(cuda):
                                 stochastic=True, record=False)
         n_binom = 2 if scn.act_statically_zero else 3
         assert (binom_fast.launches["float32"] - counts[0],
-                turning_fractions.launches["float32"] - counts[1]) == (
-            (0, 0) if plain else (n_binom * 100, 100))
+                turning_fractions.launches["float32"] - counts[1],
+                node_solve.launches["float32"] - counts[2]) == (
+            (0, 0, 0) if plain else (n_binom * 100, 100, 100))
         finals.append(final)
     for name, x in vars(finals[0]).items():
         if isinstance(x, torch.Tensor):
@@ -733,8 +740,8 @@ def test_stochastic_main_path_bitwise_with_kernels_and_plain(cuda):
 def test_env_episode_bitwise_with_kernels_and_plain(cuda):
     """45_intersections with OD randomization, 256 replicas with randomized
     worlds, 50 RL steps under random actions from one seed: with the routing
-    kernel and with its plain version, states, observations and rewards bit
-    for bit."""
+    and node solve kernels and with their plain versions, states,
+    observations and rewards bit for bit."""
     env = PedNetParallelEnv("45_intersections", od_randomize=True, seed=0, device=cuda)
     core, B = env.core, 256
     runs = []
@@ -745,14 +752,15 @@ def test_env_episode_bitwise_with_kernels_and_plain(cuda):
         bounds = {a: [torch.as_tensor(x, device=cuda) for x in
                       (env.action_space(a).low, env.action_space(a).high)]
                   for a in env.possible_agents}
-        before = turning_fractions.launches["float32"]
+        before = (turning_fractions.launches["float32"], node_solve.launches["float32"])
         with plain_hot_ops() if plain else nullcontext():
             for _ in range(50):
                 acts = {a: lo + (hi - lo) * torch.rand((B,) + lo.shape, generator=gen,
                                                       device=cuda)
                         for a, (lo, hi) in bounds.items()}
                 states, obs, rewards, _ = core.batch_step_randomized(states, acts, eps, gen)
-        assert turning_fractions.launches["float32"] - before == (0 if plain else 50)
+        assert (turning_fractions.launches["float32"] - before[0],
+                node_solve.launches["float32"] - before[1]) == ((0, 0) if plain else (50, 50))
         runs.append((states, obs, rewards))
     (s0, o0, r0), (s1, o1, r1) = runs
     for name, x in vars(s0).items():
@@ -761,3 +769,153 @@ def test_env_episode_bitwise_with_kernels_and_plain(cuda):
     for a in env.possible_agents:
         assert_bits_equal(o0[a], o1[a])
         assert_bits_equal(r0[a], r1[a])
+
+
+# --- the node solve (csrc/node_solve.cu), bitwise to its plain version
+
+
+@pytest.fixture(scope="module")
+def node_scenarios():
+    """melbourne (the main path), delft (194 routed nodes) and the env's
+    45_intersections with OD candidates, on the card; grid_50x50's 9,800
+    links; delft in float32 exact parity (the dense phi in float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = NetworkEnvGenerator()
+    out = {name: build_scenario(**gen.scenario_args(name), history_window=16,
+                                binomial_mode="fast", device="cuda")
+           for name in ("melbourne", "delft", "grid_50x50")}
+    out["delft_f32_exact"] = build_scenario(**gen.scenario_args("delft"), exact_parity=True,
+                                            device="cuda")
+    out["45_intersections"] = PedNetParallelEnv("45_intersections", od_randomize=True, seed=0,
+                                                device="cuda").scn
+    return out
+
+
+def node_operands(scn, B, seed, per_replica_t, device, dense=False):
+    """Whole sending and receiving flows with zeros and ties, every in-link
+    of a few nodes dry (columns summing to 0), random compact turning
+    fractions where routed, in the scenario's flow dtype; the env's
+    parameters drawn per replica as its traffic mix draws them (per-replica
+    demand and virtual receiving, phi_base an expand); a shared step, or one
+    per replica.  Where ``dense``, the exact path's dense phi in place of the
+    compact rows: phi_base with random rows at the routed nodes' slots."""
+    rng = np.random.default_rng(seed)
+    E, f = scn.n_links, scn.ftype
+    S = np.floor(rng.uniform(0, 30, (B, E))).astype(np.float32)
+    S[rng.uniform(size=S.shape) < 0.3] = 0.0
+    dry = scn.node_tables.in_link.cpu().numpy()[rng.integers(0, scn.n_nodes, 8)]
+    S[:, dry[dry >= 0]] = 0.0
+    R = np.floor(rng.uniform(0, 40, (B, E))).astype(np.float32)
+    R[rng.uniform(size=R.shape) < 0.2] = 0.0
+    R[rng.uniform(size=R.shape) < 0.2] = 7.0
+    ep = scn.engine_params
+    if scn.od_randomizable:
+        ep = randomize_engine_params_batched(
+            scn, torch.Generator(device=device).manual_seed(seed), B)
+    phi_c = phi = None
+    if scn.routing is not None:
+        NR, M = scn.routing.num_routed, scn.max_deg
+        phi_c = torch.from_numpy(rng.uniform(0, 1, (B, NR, M, M))).to(device, f)
+    if dense:
+        phi = ep.phi_base.expand(B, *ep.phi_base.shape[-3:]).clone()
+        if phi_c is not None:
+            ids = scn.routing.routed_ids
+            valid = scn.slot_valid[ids]
+            phi[:, ids] = phi_c * (valid[:, :, None] & valid[:, None, :])
+        phi_c = None
+    t = (torch.from_numpy(rng.integers(1, 500, B).astype(np.int32)).to(device) if per_replica_t
+         else int(rng.integers(1, 500)))
+    S, R = (torch.from_numpy(x).to(device, f) for x in (S, R))
+    return (ep, t, S, R, phi_c) + ((phi,) if dense else ())
+
+
+def assert_node_solve_is_plain(scn, ops_):
+    key = str(ops_[2].dtype).removeprefix("torch.")
+    before = dict(node_solve.launches)
+    got = node_solve(scn, *ops_)
+    want = node_solve_plain(scn, *ops_)
+    torch.cuda.synchronize()
+    assert node_solve.launches == {**before, key: before[key] + 1}
+    for a, b in zip(got, want):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["melbourne", "delft", "45_intersections"])
+@pytest.mark.parametrize("batch", [1, 33, 1024])
+@pytest.mark.parametrize("per_replica_t", [False, True])
+def test_node_solve_kernel_equals_plain_bitwise(cuda, node_scenarios, name, batch,
+                                                per_replica_t):
+    """One replica, a ragged 33 and the main path's 1024; the column sums in
+    the order of PyTorch's reduction."""
+    scn = node_scenarios[name]
+    assert_node_solve_is_plain(scn, node_operands(scn, batch, 11, per_replica_t, cuda))
+
+
+@pytest.mark.parametrize("batch", [1, 16, 512])
+def test_node_solve_gathered_design_equals_plain_bitwise(cuda, node_scenarios, batch):
+    """grid_50x50: 9,800 links, at the window's one replica and the sweeps'
+    512; the rows read in place, as on every network."""
+    scn = node_scenarios["grid_50x50"]
+    assert_node_solve_is_plain(scn, node_operands(scn, batch, 12, False, cuda))
+
+
+@pytest.mark.parametrize("name,dense,batch", [
+    ("delft_f64", False, 33), ("delft_exact", True, 1), ("delft_exact", True, 33),
+    ("grid10_exact", True, 1), ("grid10_exact", True, 6), ("delft_f32_exact", True, 33)])
+def test_node_solve_float64_and_exact_parity_equal_plain_bitwise(
+        cuda, routed_scenarios, node_scenarios, name, dense, batch):
+    """float64 flows on the fast path (the compact rows in float64), and
+    exact parity's dense phi, one per replica, with the column sums added
+    left to right (``routing.seq_sum``), in float64 (the golden and het
+    paths) and float32."""
+    scn = node_scenarios[name] if name in node_scenarios else routed_scenarios[name][0]
+    assert scn.exact_parity == dense
+    assert_node_solve_is_plain(scn, node_operands(scn, batch, 14, False, cuda, dense))
+
+
+def test_node_solve_raises_on_operands_it_cannot_take(cuda, node_scenarios):
+    scn = node_scenarios["melbourne"]
+    ep, t, S, R, phi_c = node_operands(scn, 2, 13, False, cuda)
+    with pytest.raises(TypeError, match="one flow dtype"):
+        node_solve(scn, ep.replace(virt_recv=ep.virt_recv.double()), t, S, R, phi_c)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        node_solve(scn, ep, t, S.half(), R.half(), phi_c)
+    with pytest.raises(ValueError, match="links"):
+        node_solve(scn, ep, t, S[:, :-1], R[:, :-1], phi_c)
+
+
+def test_delft_rollout_bitwise_with_kernels_and_plain(cuda, node_scenarios):
+    """delft, 64 replicas, 20 stochastic fast-path steps from one seed: with
+    the kernels (one node solve launch a step) and with the plain versions,
+    every state leaf bit for bit."""
+    scn = node_scenarios["delft"]
+    finals = []
+    for plain in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        before = node_solve.launches["float32"]
+        with plain_hot_ops() if plain else nullcontext():
+            final, _ = simulate(scn, scn.engine_params, scn.init_state(64), 20, gen=gen,
+                                stochastic=True, record=False)
+        assert node_solve.launches["float32"] - before == (0 if plain else 20)
+        finals.append(final)
+    for name, x in vars(finals[0]).items():
+        if isinstance(x, torch.Tensor):
+            assert_bits_equal(x, getattr(finals[1], name))
+
+
+def test_exact_parity_rollout_bitwise_with_kernels_and_plain(cuda, routed_scenarios):
+    """delft in float64 exact parity, 8 replicas, 20 deterministic steps:
+    with the kernels (one float64 node solve launch a step, on the dense
+    phi) and with the plain versions, every state leaf bit for bit."""
+    scn = routed_scenarios["delft_exact"][0]
+    finals = []
+    for plain in (False, True):
+        before = node_solve.launches["float64"]
+        with plain_hot_ops() if plain else nullcontext():
+            final, _ = simulate(scn, scn.engine_params, scn.init_state(8), 20, record=False)
+        assert node_solve.launches["float64"] - before == (0 if plain else 20)
+        finals.append(final)
+    for name, x in vars(finals[0]).items():
+        if isinstance(x, torch.Tensor):
+            assert_bits_equal(x, getattr(finals[1], name))

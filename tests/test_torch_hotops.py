@@ -1,8 +1,9 @@
-"""What the port's two hand kernels for the step's hot ops compute, on the
-CPU: the fast binomial sampler (``ops.binom``, ``csrc/binom.cu``) and the
-routed turning fractions (``ops.routing``, ``csrc/routing.cu``).
+"""What the port's three hand kernels for the step's hot ops compute, on
+the CPU: the fast binomial sampler (``ops.binom``, ``csrc/binom.cu``), the
+routed turning fractions (``ops.routing``, ``csrc/routing.cu``) and the node
+solve (``ops.node_solve``, ``csrc/node_solve.cu``).
 
-On CPU tensors both wrappers run their plain versions, so here:
+On CPU tensors the wrappers run their plain versions, so here:
 
 - the plain fast binomial is held bit for bit to the JAX package's fast
   sampler under ``jax.jit``, fed the uniforms and normals that sampler
@@ -23,7 +24,16 @@ On CPU tensors both wrappers run their plain versions, so here:
   scenario;
 - both dispatch points (``ops.binom_fast``, ``routing.
   turning_fractions_step``) take the plain version for CPU tensors and
-  count no launch; the routing kernel's launcher refuses them.
+  count no launch; the routing kernel's launcher refuses them;
+- the node solve's static tables (each link's (node, slot) on both ends,
+  the routed rows, the flags, the order) are checked against the
+  topology; its kernel's walk over them is written out in numpy and held
+  bit for bit to the plain version where the column sums are exact; the
+  plain version is the step's node solve as the benchmark's frozen copy
+  has it; the wrapper takes it for CPU tensors and counts no launch; the
+  argument block reads each path's operands by their strides; and the
+  benchmark's bound (``portbench/bounds/node_solve.py``) counts a small
+  network's bytes as worked out by hand.
 
 The card tests (``tests/test_torch_cuda.py``) hold the kernels to these
 plain versions on the card.
@@ -414,12 +424,12 @@ def test_dense_placement_is_the_jax_exact_path():
 
 
 def test_plain_hot_ops_swaps_and_restores():
-    """``profiling.plain_hot_ops`` routes the step's two hot ops to their
+    """``profiling.plain_hot_ops`` routes the step's three hot ops to their
     plain versions while entered (the card's 'before' in one process) and
     puts the wrappers back; on the CPU both give the same step."""
     from pednstream_tpu_torch.profiling import plain_hot_ops
 
-    wrappers = (engine.binom_fast, engine.turning_fractions_step)
+    wrappers = (engine.binom_fast, engine.turning_fractions_step, engine._node_solve)
     scn = torch_build(**NetworkEnvGenerator().scenario_args("melbourne"), history_window=16,
                       binomial_mode="fast")
     finals = []
@@ -429,9 +439,348 @@ def test_plain_hot_ops_swaps_and_restores():
             if plain:
                 assert engine.binom_fast is binom_fast_plain
                 assert engine.turning_fractions_step is turning_fractions_step_plain
+                assert engine._node_solve is ops.node_solve_plain
             finals.append(engine.simulate_batched(scn, scn.engine_params, scn.init_state(3), 4,
                                                   gen=gen, stochastic=True))
-    assert (engine.binom_fast, engine.turning_fractions_step) == wrappers
+    assert (engine.binom_fast, engine.turning_fractions_step, engine._node_solve) == wrappers
     for name, x in vars(finals[0]).items():
         if isinstance(x, torch.Tensor):
             assert_bits_equal(x, getattr(finals[1], name))
+
+
+# ---------------------------------------------------------------------------
+# the node solve
+# ---------------------------------------------------------------------------
+
+_NODE_SCENARIOS = {}
+_NODE_FORMS = {"_f32_exact": {"ftype": torch.float32, "exact_parity": True},
+               "_exact": {"ftype": torch.float64, "exact_parity": True},
+               "_f64": {"ftype": torch.float64}}
+
+
+def node_scenario(name):
+    """The scenario of ``name`` as the benchmark's cells and the served path
+    step it (float32, the fast binomial; the env's with OD candidates);
+    ``<name>_f64`` in float64 flows, ``<name>_exact`` (float64) and
+    ``<name>_f32_exact`` in exact parity, ``grid10`` the golden fixture's."""
+    if name not in _NODE_SCENARIOS:
+        base, kw = name, {}
+        for suffix, form in _NODE_FORMS.items():
+            if name.endswith(suffix):
+                base, kw = name.removesuffix(suffix), form
+                break
+        if base == "grid10":
+            args, _, _ = fixture_args(Path(__file__).parent / "golden" / "grid10.npz")
+            scn = torch_build(**args, **kw)
+        elif kw:
+            args = NetworkEnvGenerator().scenario_args(base)
+            args["params"].setdefault("seed", 1)
+            scn = torch_build(**args, **kw)
+        elif name == "45_intersections":
+            from pednstream_tpu_torch.env import PedNetParallelEnv
+
+            scn = PedNetParallelEnv(name, od_randomize=True, seed=0, device="cpu").scn
+        else:
+            args = NetworkEnvGenerator().scenario_args(name)
+            args["params"].setdefault("seed", 1)
+            scn = torch_build(**args, history_window=16, binomial_mode="fast")
+        _NODE_SCENARIOS[name] = scn
+    return _NODE_SCENARIOS[name]
+
+
+def node_operands(scn, B, seed, per_replica):
+    """Whole sending and receiving flows (zeros and ties among them), the
+    scenario's parameters (drawn per replica where ``per_replica``, as the
+    env randomizes them: per-replica demand, virtual receiving and od
+    tables, ``phi_base`` an expand), random compact turning fractions where
+    routed, and a shared step or one per replica; in the scenario's flow
+    dtype."""
+    from pednstream_tpu_torch.randomize import randomize_engine_params_batched
+
+    rng = np.random.default_rng(seed)
+    E = scn.n_links
+    S = np.floor(rng.uniform(0, 30, (B, E))).astype(np.float32)
+    S[rng.uniform(size=S.shape) < 0.3] = 0.0
+    R = np.floor(rng.uniform(0, 40, (B, E))).astype(np.float32)
+    R[rng.uniform(size=R.shape) < 0.2] = 0.0
+    R[rng.uniform(size=R.shape) < 0.2] = 7.0
+    ep = scn.engine_params
+    if per_replica:
+        ep = randomize_engine_params_batched(scn, torch.Generator().manual_seed(seed), B)
+    f = scn.ftype
+    phi_c = None
+    if scn.routing is not None:
+        NR, M = scn.routing.num_routed, scn.max_deg
+        phi_c = torch.from_numpy(rng.uniform(0, 1, (B, NR, M, M))).to(f)
+    t = (torch.from_numpy(rng.integers(1, 500, B).astype(np.int32)) if per_replica
+         else int(rng.integers(1, 500)))
+    return ep, t, torch.from_numpy(S).to(f), torch.from_numpy(R).to(f), phi_c
+
+
+def dense_phi(scn, ep, phi_c):
+    """The exact path's dense phi from compact rows: ``phi_base`` with the
+    routed nodes' rows at their valid slots (``turning_fractions_dense``)."""
+    B = phi_c.shape[0]
+    phi = ep.phi_base.expand(B, *ep.phi_base.shape[-3:]).clone()
+    ids = scn.routing.routed_ids
+    valid = scn.slot_valid[ids]
+    phi[:, ids] = phi_c * (valid[:, :, None] & valid[:, None, :])
+    return phi
+
+
+def kernel_node_walk(scn, ep, t, S, R, phi_c, phi=None):
+    """The kernel's walk (``csrc/node_solve.cu``) in numpy: each node's
+    slots read through the scenario's ``NodeTables`` (the in- and out-link
+    of each slot, the virtual pair at slot 0, the routed row, or the dense
+    ``phi``'s rows for every node), the crossing rule at OneToOne nodes, the
+    classic allocation elsewhere over the node's own slots (its arity; the
+    padded ones add nothing) with each column summed in the kernel's order
+    (element i into accumulator i % 4, combined ((a0 + a1) + a2) + a3; on a
+    dense phi of exact parity left to right), and the flows written back at
+    each node's own links (every link written once), in the flows' dtype."""
+    from pednstream_tpu_torch.engine import _column
+
+    tabs = scn.node_tables
+    B, E = S.shape
+    N, M = scn.n_nodes, scn.max_deg
+    in_link, out_link = tabs.in_link.numpy(), tabs.out_link.numpy()
+    flags, pos = tabs.node_flags.numpy(), tabs.routed_pos.numpy()
+    otoo, virt, arity = (flags & 1) > 0, (flags & 2) > 0, flags >> 2
+    S, R = S.numpy(), R.numpy()
+    f = S.dtype.type
+    demand = np.broadcast_to(_column(ep.demand, t - 1).numpy(), (B, N))
+    virt_recv = np.broadcast_to(ep.virt_recv.numpy(), (B, N))
+    s = np.where(in_link >= 0, S[:, np.maximum(in_link, 0)], f(0))
+    r = np.where(out_link >= 0, R[:, np.maximum(out_link, 0)], f(0))
+    s[:, virt, 0] = demand[:, virt]
+    r[:, virt, 0] = virt_recv[:, virt]
+    seq = phi is not None and scn.exact_parity
+    if phi is not None:
+        phi = np.broadcast_to(phi.numpy(), (B, N, M, M)).copy()
+    else:
+        phi = np.broadcast_to(ep.phi_base.numpy(), (B, N, M, M)).copy()
+        routed = pos >= 0
+        if phi_c is not None:
+            phi[:, routed] = phi_c.numpy()[:, pos[routed]]
+    live = np.arange(M) < arity[:, None]  # the padded slots add nothing
+    dem = np.where(live[:, :, None] & live[:, None, :], phi * s[..., None], f(0))
+    acc = [np.zeros((B, N, M), dtype=f) for _ in range(4)]
+    for i in range(M):
+        acc[0 if seq else i % 4] = acc[0 if seq else i % 4] + dem[:, :, i, :]
+    col = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    den = np.where(col != 0, col, f(1e-5))
+    g = np.floor(np.minimum(dem, r[:, :, None, :] * (dem / den[:, :, None, :])))
+    q_in, q_out = np.maximum(g.sum(-1), 0), np.maximum(g.sum(-2), 0)
+    q_in[:, otoo] = 0
+    q_out[:, otoo] = 0
+    so, ro = s[:, otoo], r[:, otoo]
+    q_in[:, otoo, 0] = np.minimum(so[..., 0], ro[..., 1])
+    q_in[:, otoo, 1] = np.minimum(so[..., 1], ro[..., 0])
+    q_out[:, otoo, 0] = np.minimum(so[..., 1], ro[..., 0])
+    q_out[:, otoo, 1] = np.minimum(so[..., 0], ro[..., 1])
+    outflow = np.full((B, E), np.nan, dtype=f)
+    inflow = np.full((B, E), np.nan, dtype=f)
+    outflow[:, in_link[in_link >= 0]] = q_in[:, in_link >= 0]
+    inflow[:, out_link[out_link >= 0]] = q_out[:, out_link >= 0]
+    assert not np.isnan(outflow).any() and not np.isnan(inflow).any()
+    virt_dep = np.where(virt, q_in[..., 0], f(0))
+    virt_arr = np.where(virt, q_out[..., 0], f(0))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x))
+                 for x in (inflow, outflow, virt_dep, virt_arr))
+
+
+@pytest.mark.parametrize("name", ["melbourne", "delft", "45_intersections", "small_network",
+                                  "long_corridor"])
+def test_node_tables_name_each_links_slots(name):
+    """Each link's (end node, slot) holds it in ``in_link`` and its (start
+    node, slot) in ``out_link``, and no other slot does; ``routed_pos``
+    gives each routed node its row of the compact turning fractions and -1
+    elsewhere; the flags and the order (the classic nodes, the largest
+    arity first, then the OneToOne nodes) follow the topology."""
+    scn = node_scenario(name)
+    tabs, topo = scn.node_tables, scn.topo
+    E, N = scn.n_links, scn.n_nodes
+    links = np.arange(E)
+    for table, node, slot in ((tabs.in_link, topo.end_node, topo.end_slot),
+                              (tabs.out_link, topo.start_node, topo.start_slot)):
+        table = table.numpy()
+        assert table.dtype == np.int32 and table.shape == (N, scn.max_deg)
+        np.testing.assert_array_equal(table[node, slot], links)
+        assert int((table >= 0).sum()) == E
+        assert not (table[:, 0][topo.has_virtual] >= 0).any()  # the virtual slot
+    pos = tabs.routed_pos.numpy()
+    routed = [] if scn.routing is None else scn.routing.routed_ids.tolist()
+    want = np.full(N, -1)
+    want[routed] = np.arange(len(routed))
+    np.testing.assert_array_equal(pos, want)
+    flags = tabs.node_flags.numpy()
+    np.testing.assert_array_equal(flags & 1, topo.is_otoo)
+    np.testing.assert_array_equal((flags >> 1) & 1, topo.has_virtual)
+    arity = flags >> 2
+    np.testing.assert_array_equal(arity, topo.slot_valid.sum(axis=1))
+    np.testing.assert_array_equal(topo.slot_valid, np.arange(scn.max_deg) < arity[:, None])
+    order = tabs.order.numpy()
+    classic = np.flatnonzero(~topo.is_otoo)
+    want = sorted(classic, key=lambda n: (-arity[n], n))
+    np.testing.assert_array_equal(order[:classic.size], want)
+    np.testing.assert_array_equal(order[classic.size:], np.flatnonzero(topo.is_otoo))
+
+
+@pytest.mark.parametrize("name,per_replica,dense", [
+    ("melbourne", False, False), ("melbourne", True, False), ("delft", False, False),
+    ("45_intersections", True, False), ("small_network", False, False),
+    ("small_network_f64", False, False), ("small_network_exact", False, True),
+    ("small_network_f32_exact", True, True), ("grid10_exact", False, True)])
+def test_kernel_node_walk_is_the_plain_version(name, per_replica, dense):
+    """The kernel's walk over the node tables equals the plain version bit
+    for bit where the column sums are exact (whole flows, turning fractions
+    in sixteenths, so the kernel's summation order cannot show): the
+    tables, the virtual slot, the routed rows, the crossing rule and the
+    write-back; float64 flows, and exact parity's dense phi (the rows of
+    every node, one set per replica).  The card tests hold the kernel
+    itself to the plain version on real fractions."""
+    scn = node_scenario(name)
+    ep, t, S, R, phi_c = node_operands(scn, 3, 31, per_replica)
+    rng = np.random.default_rng(32)
+    B, N, M, f = S.shape[0], scn.n_nodes, scn.max_deg, S.dtype
+    mask = (ep.phi_base != 0).expand(B, N, M, M)
+    ep = ep.replace(phi_base=torch.where(
+        mask, torch.from_numpy(rng.integers(1, 17, (B, N, M, M)) / 16).to(f), 0.0))
+    if phi_c is not None:
+        phi_c = torch.from_numpy(rng.integers(0, 17, phi_c.shape) / 16).to(f)
+    phi = None
+    if dense:
+        phi, phi_c = dense_phi(scn, ep, phi_c), None
+    got = kernel_node_walk(scn, ep, t, S, R, phi_c, phi)
+    want = ops.node_solve_plain(scn, ep, t, S, R, phi_c, phi)
+    for a, b in zip(got, want):
+        assert a.dtype == f
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.parametrize("name,per_replica", [("melbourne", False), ("delft", True),
+                                              ("45_intersections", True)])
+def test_node_solve_plain_is_the_step_it_replaced(name, per_replica):
+    """``ops.node_solve_plain`` is the step's node solve as it was before
+    the kernel (the frozen copy in ``portbench/reference/engine.py``): the
+    float32 fast path with routed rows, per-replica parameters and steps."""
+    from portbench.reference.engine import _node_solve as frozen
+
+    scn = node_scenario(name)
+    ep, t, S, R, phi_c = node_operands(scn, 4, 33, per_replica)
+    for a, b in zip(ops.node_solve_plain(scn, ep, t, S, R, phi_c),
+                    frozen(scn, ep, t, S, R, phi_c)):
+        assert_bits_equal(a, b)
+
+
+def test_node_solve_wrapper_takes_the_plain_version_on_the_cpu():
+    scn = node_scenario("melbourne")
+    ep, t, S, R, phi_c = node_operands(scn, 2, 34, False)
+    before = dict(ops.node_solve.launches)
+    for a, b in zip(engine._node_solve(scn, ep, t, S, R, phi_c),
+                    ops.node_solve_plain(scn, ep, t, S, R, phi_c)):
+        assert_bits_equal(a, b)
+    assert engine._node_solve is ops.node_solve
+    assert before == ops.node_solve.launches == {"float32": 0, "float64": 0}
+
+
+def test_node_solve_kernel_args_take_each_path_without_a_copy():
+    """The argument block the wrapper would launch with, on each path's
+    operands: the shared demand column and the per-replica ones read in
+    place by their strides, ``phi_base``'s expand with replica stride 0, a
+    dense phi of exact parity in ``phi_base``'s place with its replica
+    stride, no compact rows and the sums left to right, the float64 entry
+    for float64 flows; the four outputs views of one buffer; one plan kept
+    per operand layout; operands it cannot take raise."""
+    import sys
+
+    kernel = sys.modules["pednstream_tpu_torch.ops.node_solve"]
+
+    mel = node_scenario("melbourne")
+    mel.node_tables.plans.clear()
+    ep, t, S, R, phi_c = node_operands(mel, 3, 35, False)
+    args, outs, entry = kernel.kernel_args(mel, ep, t, S, R, phi_c)
+    T1 = ep.demand.shape[-1]
+    assert entry == "node_solve"
+    assert (args.demand_sb, args.demand_sn, args.virt_recv_sb, args.phi_base_sb) == (0, T1, 0, 0)
+    assert args.demand == ep.demand[:, t - 1].data_ptr()
+    assert (args.phi_c, args.phi_c_sb, args.phi_base) == (
+        phi_c.data_ptr(), 4 * 36, ep.phi_base.data_ptr())
+    assert (args.B, args.E, args.N, args.M, args.NR, args.seq_sum) == (3, 938, 341, 6, 4, 0)
+    assert [tuple(x.shape) for x in outs] == [(3, 938), (3, 938), (3, 341), (3, 341)]
+    base = outs[0].untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base and x.is_contiguous() for x in outs)
+    assert [x.data_ptr() for x in outs] == [args.inflow, args.outflow, args.virt_dep,
+                                            args.virt_arr]
+    assert [x.data_ptr() - base for x in outs] == [0, 4 * 3 * 938, 8 * 3 * 938,
+                                                   8 * 3 * 938 + 4 * 3 * 341]
+    # the same layout again takes the kept plan; another batch makes one more
+    kernel.kernel_args(mel, ep, t + 1, S, R, phi_c)
+    assert len(mel.node_tables.plans) == 1
+    ep2, t2, S2, R2, phi_c2 = node_operands(mel, 5, 35, False)
+    kernel.kernel_args(mel, ep2, t2, S2, R2, phi_c2)
+    assert len(mel.node_tables.plans) == 2
+
+    env = node_scenario("45_intersections")
+    ep, t, S, R, phi_c = node_operands(env, 6, 36, True)
+    args, _, _ = kernel.kernel_args(env, ep, 9, S, R, phi_c)
+    N, T1 = env.n_nodes, ep.demand.shape[-1]
+    assert ep.phi_base.stride(0) == 0
+    assert (args.demand_sb, args.demand_sn) == (N * T1, T1)
+    assert (args.virt_recv_sb, args.virt_recv_sn, args.phi_base_sb) == (N, 1, 0)
+    # a per-replica step gathers each replica's column: [B, N] by its strides
+    args, _, _ = kernel.kernel_args(env, ep, t, S, R, phi_c)
+    assert (args.demand_sb, args.demand_sn) == (N, 1)
+
+    # exact parity in float64: the dense phi in phi_base's place
+    ex = node_scenario("small_network_exact")
+    ep, t, S, R, phi_c = node_operands(ex, 2, 37, False)
+    phi = dense_phi(ex, ep, phi_c)
+    args, outs, entry = kernel.kernel_args(ex, ep, t, S, R, phi_c, phi)
+    N, M = ex.n_nodes, ex.max_deg
+    assert entry == "node_solve_f64" and all(x.dtype == torch.float64 for x in outs)
+    assert (args.phi_base, args.phi_base_sb, args.phi_c, args.seq_sum) == (
+        phi.data_ptr(), N * M * M, None, 1)
+    # float64 on the fast path: the compact rows, PyTorch's order
+    f64 = node_scenario("small_network_f64")
+    ep, t, S, R, phi_c = node_operands(f64, 2, 38, False)
+    args, _, entry = kernel.kernel_args(f64, ep, t, S, R, phi_c)
+    assert (entry, args.seq_sum, args.phi_c) == ("node_solve_f64", 0, phi_c.data_ptr())
+
+    ep, t, S, R, phi_c = node_operands(mel, 1, 1, False)
+    with pytest.raises(TypeError, match="one flow dtype"):
+        kernel.kernel_args(mel, ep.replace(virt_recv=ep.virt_recv.double()), t, S, R, phi_c)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        kernel.kernel_args(mel, ep, t, S.half(), R.half(), phi_c)
+    with pytest.raises(ValueError, match="links"):
+        kernel.kernel_args(mel, ep, t, S[:, :-1], R[:, :-1], phi_c)
+
+
+@pytest.mark.parametrize("mix", ["rollout", "env", "exact"])
+def test_node_solve_bound_counts_by_hand(mix):
+    """``portbench/bounds/node_solve.py`` on small_network (6 nodes, 14
+    links, M = 4; nodes 1 and 5 of arity 4 are the only classic ones, both
+    routed; nodes 0 and 5 have a virtual pair), B = 3: per replica S, R,
+    inflow and outflow (4 x 14 words) and the two virtual vectors (2 x 6);
+    demand and virtual receiving of the 2 virtual nodes once, or per replica
+    in the env; phi_c's 12 valid off-diagonal slots of each routed node per
+    replica; no phi_base pair (both classic nodes are routed).  Without the
+    routing, phi_base's 2 x 12 pairs once instead.  Operations: 5 per valid
+    (node, in slot, out slot) of the classic nodes, 2 x 16 a replica.  On
+    exact parity's dense phi in float64, the classic nodes' 2 x 12 pairs
+    per replica, 8 bytes a word."""
+    from portbench.bounds.node_solve import bytes_and_ops
+
+    scn = node_scenario("small_network")
+    if mix == "exact":
+        assert bytes_and_ops(scn, 3, False, 8, dense_phi=True) == (
+            8 * (4 * 3 * 14 + 2 * 3 * 6 + 2 * 2 + 3 * 24), 5 * 3 * 32)
+        return
+    per_replica = mix == "env"
+    virt = 2 * 2 * (3 if per_replica else 1)
+    assert bytes_and_ops(scn, 3, per_replica) == (4 * (4 * 3 * 14 + 2 * 3 * 6 + virt + 3 * 24),
+                                                  5 * 3 * 32)
+    unrouted = copy.copy(scn)
+    unrouted.routing = None
+    assert bytes_and_ops(unrouted, 3, per_replica) == (4 * (4 * 3 * 14 + 2 * 3 * 6 + virt + 24),
+                                                       5 * 3 * 32)
