@@ -600,13 +600,6 @@ HOT_KERNELS = {
                    "replaces": "pednstream_tpu/engine.py:109"},
     "node_solve": {"source": "pednstream_tpu_torch/csrc/node_solve.cu",
                    "replaces": "pednstream_tpu/engine.py:446,458"}}
-# float operations per element of the fast binomial: the 16-term walk (an
-# add, a subtract and three multiplies per term, one add to the count, the
-# power counted as one) and the Gaussian branch
-BINOM_OPS_SMALL, BINOM_OPS_LARGE = 100, 8
-# float operations per turn entry outside the segment sums: the capacity
-# and density terms, the utility, XLA's exp polynomial, the share
-ROUTING_OPS_PER_ENTRY = 31
 
 
 @contextlib.contextmanager
@@ -627,50 +620,6 @@ def captured(name: str, calls: list):
         setattr(engine, name, inner)
 
 
-def binom_bound(nf, p, u, z) -> dict:
-    """The least time for one fast-binomial call on these operands: counts,
-    the sample and p's distinct values moved once, u only where n <= 16 and
-    z only where n > 16 (what this data needs); the walk's float work on the
-    small counts, the Gaussian's on the others."""
-    n = nf.numel()
-    small = int((nf <= 16).sum())
-    moved = 4 * (2 * n + small + (n - small) + p.numel())
-    ops = BINOM_OPS_SMALL * small + BINOM_OPS_LARGE * (n - small)
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return {"bound_bytes": moved, "bound_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "small_n": small}
-
-
-def routing_bound(rt, M, dens, recv, cap, od) -> dict:
-    """The least time for one turning-fractions call: per replica the
-    density and receiving flow of each distinct routed down link, its
-    default capacity where the receiving flow is unset, and the od flow of
-    each distinct pair (once when shared); the tables once (entry and uo
-    tables, the valid member ids, the offsets, the guard's fallback); the
-    output.  Operations: the per-entry float work, one add per valid member
-    of each segment sum (the softmax groups twice), a division per uo
-    entry, the guard's few per slot."""
-    import torch
-
-    B, item = dens.shape[0], rt.dist_util.element_size()
-    links = torch.unique(rt.te_down_link[rt.te_down_link >= 0])
-    unset = int((recv[:, links] < 0).sum())
-    pairs = torch.unique(rt.uo_od).numel()
-    K, U = rt.num_entries, rt.uo_od.numel()
-    nnz = [int((m >= 0).sum()) for m in (rt.group_members, rt.uo_group_members,
-                                           rt.phi_c_members)]
-    slots = rt.num_routed * M * M
-    moved = (B * links.numel() * (4 + item) + unset * item
-             + pairs * item * (B if od.dim() == 2 else 1)
-             + K * (3 * 8 + item) + U * (2 * 8 + item) + 8 * sum(nnz)
-             + rt.node_offsets.numel() * 8 + slots * item + B * slots * item)
-    ops = B * (ROUTING_OPS_PER_ENTRY * K + 2 * nnz[0] + nnz[1] + nnz[2] + U + 4 * slots)
-    rate = FP32_OPS_PER_S if item == 4 else FP64_OPS_PER_S
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return {"bound_bytes": moved, "bound_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def bits_equal(a, b) -> bool:
     """Equal bit for bit (``torch.equal`` takes -0.0 for +0.0)."""
     import torch
@@ -680,10 +629,11 @@ def bits_equal(a, b) -> bool:
             and torch.equal(a.contiguous().view(view), b.contiguous().view(view)))
 
 
-def hold_hot_kernel(card, kernel, key, label, fn, plain, ops, bound, plain_iters) -> dict:
+def hold_hot_kernel(card, kernel, key, label, fn, plain, ops, bound_s, plain_iters) -> dict:
     """One launch of ``fn`` against ``plain`` on the same CUDA operands,
     bitwise, then the kernel's device and host time and the plain
-    version's beside ``bound``; prints and returns the case."""
+    version's beside ``bound_s``, the least seconds of the call
+    (``portbench/bounds/``); prints and returns the case."""
     import torch
 
     counts = kernel_counts()[kernel]
@@ -697,9 +647,10 @@ def hold_hot_kernel(card, kernel, key, label, fn, plain, ops, bound, plain_iters
     if not bits_equal(got, want):
         raise AssertionError(f"{kernel} kernel != plain ({label}): max abs err {err}")
     case = {"device_ms": device_ms(lambda: fn(*ops)), "host_ms": host_us(lambda: fn(*ops)) / 1e3,
-            "plain_ms": cuda_ms(lambda: plain(*ops), iters=plain_iters, warmup=1), **bound}
+            "plain_ms": cuda_ms(lambda: plain(*ops), iters=plain_iters, warmup=1),
+            "bound_ms": 1e3 * bound_s}
     emit("hot_kernel_vs_plain", kernel=kernel, dtype=key, operands=label, bitwise_equal=True,
-         max_abs_err=err, **case, share_of_bound=bound["bound_ms"] / case["device_ms"],
+         max_abs_err=err, **case, share_of_bound=case["bound_ms"] / case["device_ms"],
          card=card)
     return {"max_abs_err": err, "ms": case["device_ms"], **case, "library_ms": None,
             "operands": label}
@@ -791,24 +742,34 @@ def routing_walk():
         kernel.lane_warps = saved
 
 
-def hold_routing(card, key, label, rt, M, ops, plain_iters) -> dict:
-    """``hold_hot_kernel`` for the routing kernel on ``ops``, under the
-    design the batch takes; where that is the streamed design, the walk is
-    held bitwise on the same operands too, and its device time kept beside
-    (``walk_ms``).  Prints the case, and returns it with its design."""
+def hold_routing(card, key, label, scn, ops, plain_iters) -> dict:
+    """``hold_hot_kernel`` for the routing kernel on ``scn``'s tables and
+    ``ops``, under the design the batch takes, beside the bound of
+    ``portbench/bounds/turning_fractions.py`` (which counts the kernel's
+    node offsets with the routing tables); where that is the streamed
+    design, the walk is held bitwise on the same operands too, and its
+    device time kept beside (``walk_ms``).  Prints the case, and returns it
+    with its design."""
+    from types import SimpleNamespace
+
     import torch
-    from pednstream_tpu_torch.ops import turning_fractions
-    from pednstream_tpu_torch.routing import turning_fractions_step, turning_fractions_step_plain
+    from pednstream_tpu_torch.ops import turning_fractions, turning_fractions_step_plain
+    from portbench.bounds.turning_fractions import least_seconds_call
 
     def fn(*o):
-        return turning_fractions_step(rt, M, *o)
+        return turning_fractions(scn, *o)
 
     def plain(*o):
-        return turning_fractions_step_plain(rt, M, *o)
+        return turning_fractions_step_plain(scn, *o)
 
+    rt, (dens, recv, _, od) = scn.routing, ops
+    links = torch.unique(rt.te_down_link[rt.te_down_link >= 0])
+    tables = SimpleNamespace(**vars(rt), node_offsets=scn.routing_kernel_tables.node_offsets)
+    bound_s = least_seconds_call(tables, scn.max_deg, dens.shape[0],
+                                 int((recv[:, links] < 0).sum()), od.dim() == 2)
     before = dict(turning_fractions.launches_by_design)
-    case = hold_hot_kernel(card, "turning_fractions", key, label, fn, plain, ops,
-                           routing_bound(rt, M, *ops), plain_iters)
+    case = hold_hot_kernel(card, "turning_fractions", key, label, fn, plain, ops, bound_s,
+                           plain_iters)
     design, = (d for d, n in turning_fractions.launches_by_design.items() if n != before[d])
     case["design"] = design
     if design == "lanes":
@@ -839,6 +800,8 @@ def phase_hot_ops(card: str, scn) -> dict:
     from pednstream_tpu_torch.ops import binom_fast, binom_fast_plain
     from pednstream_tpu_torch.profiling import ZOO_PPO, plain_hot_ops
     from pednstream_tpu_torch.randomize import randomize_engine_params_batched
+    from portbench.bounds.binom_fast import SMALL_N
+    from portbench.bounds.binom_fast import least_seconds_call as binom_seconds
 
     record = {}
     rng = np.random.default_rng(SEED)
@@ -879,8 +842,10 @@ def phase_hot_ops(card: str, scn) -> dict:
     if len(binom_calls) != 6:
         raise AssertionError(f"{len(binom_calls)} binomial calls in two main-path steps")
     for site, ops in zip(sites, binom_calls[:3]):
+        nf, p = ops[:2]
+        bound_s = binom_seconds(nf.numel(), p.numel(), int((nf <= SMALL_N).sum()))
         case = hold_hot_kernel(card, "binom_fast", "float32", f"main path {site}, real",
-                               binom_fast, binom_fast_plain, ops, binom_bound(*ops), 20)
+                               binom_fast, binom_fast_plain, ops, bound_s, 20)
         if site == "release":
             record[("binom_fast", "float32")] = case
     for shape in BINOM_SHAPES:
@@ -889,12 +854,13 @@ def phase_hot_ops(card: str, scn) -> dict:
         u = rng.uniform(0, 1, shape).astype(np.float32)
         z = rng.standard_normal(shape).astype(np.float32)
         ops = [torch.from_numpy(x).to("cuda") for x in (n, p, u, z)]
+        bound_s = binom_seconds(n.size, p.size, int((n <= SMALL_N).sum()))
         hold_hot_kernel(card, "binom_fast", "float32", f"random {shape}", binom_fast,
-                        binom_fast_plain, ops, binom_bound(*ops), 20)
+                        binom_fast_plain, ops, bound_s, 20)
 
     # the routing kernel at the main path's real operands
-    (rt, M, *ops), = routing_calls[:1]
-    hold_routing(card, "float32", "main path, real", rt, M, ops, 20)
+    (_, *ops), = routing_calls[:1]
+    hold_routing(card, "float32", "main path, real", scn, ops, 20)
 
     # the env episode, kernels then plain versions from one seed; its last
     # step's routing operands kept
@@ -933,9 +899,9 @@ def phase_hot_ops(card: str, scn) -> dict:
         raise AssertionError(f"env episode with the routing kernel != plain: {bad}")
     emit("hot_env_bitwise", rl_steps=HOT_OPS["env_rl_steps"], batch=B,
          routing_launches=HOT_OPS["env_rl_steps"], bitwise_equal=True, card=card)
-    (rt, M, *ops), = env_calls
+    (escn, *ops), = env_calls
     record[("turning_fractions", "float32")] = hold_routing(
-        card, "float32", "env, real (RL step 50)", rt, M, ops, 5)
+        card, "float32", "env, real (RL step 50)", escn, ops, 5)
 
     # the node solve at the main path's and the env episode's real operands
     # (its worlds drawn per replica), delft at B=1024 and the served
@@ -1005,8 +971,7 @@ def phase_hot_ops(card: str, scn) -> dict:
     for label, tscn, batch in tables:
         tscn = tscn or last
         last = tscn
-        rt, M, E = tscn.routing, tscn.max_deg, tscn.n_links
-        f = rt.dist_util.dtype
+        E, f = tscn.n_links, tscn.routing.dist_util.dtype
         key = str(f).removeprefix("torch.")
         dens = torch.from_numpy(rng.uniform(0, 6, (batch, E)).astype(np.float32)).to("cuda")
         recv = torch.from_numpy(np.where(rng.uniform(size=(batch, E)) < 0.3, -1.0,
@@ -1018,7 +983,7 @@ def phase_hot_ops(card: str, scn) -> dict:
             scale = torch.from_numpy(rng.uniform(0, 2, (batch, 1, 1))).to("cuda", od.dtype)
             od = (table[None] * scale)[:, :, table.shape[1] // 3]
         ops = [dens, recv, cap, od]
-        case = hold_routing(card, key, f"{label}, B={batch}, random", rt, M, ops, 5)
+        case = hold_routing(card, key, f"{label}, B={batch}, random", tscn, ops, 5)
         if label.startswith("golden"):
             record[("turning_fractions", key)] = case
     return record

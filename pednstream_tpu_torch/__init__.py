@@ -6,11 +6,13 @@ the same names.  It imports ``torch``, numpy, networkx, PyYAML and (for
 the ``'optimal'`` solve) scipy, and never JAX.  It holds the host-side
 scenario compiler (config, topology, demand, routing tables, scenario,
 generator, lp_solver), the engine's float32 fast path and float64
-exact-parity path (engine, fd, routing), per-replica domain randomization
+exact-parity path (engine, fd), per-replica domain randomization
 (randomize), the RL env core and its PettingZoo wrapper (env), the
 policy networks, PPO/SAC agents, batched PPO and SAC trainers, training
 drivers, evaluation harness, offline metrics, MPC baseline and adapters
-(rl), the fused N-curve history-read kernel (ops, csrc/ncurve.cu), the
+(rl), the step's hand kernels, each op with its plain version and its
+tables (ops: the fused history read, the routed turning fractions, the
+fast binomial, the node solve; csrc/), the
 reference-format output handler (io), the visualizers (viz), checkpoints,
 logging and profiling helpers (utils, profiling), the object-style
 ``Network`` facade (network), the service layer (mcp: the tool server,

@@ -23,16 +23,22 @@ Two modes share the step:
 - ``scn.exact_parity`` (float64 flows from ``scn.ftype``): dtype staging
   exactly where the JAX engine casts, a dense ``[B, N, M, M]`` phi, and
   every sum of non-integers added left to right in the reference's order
-  (``routing.seq_sum``, ``routing.segment_sum``).  Eager PyTorch forms no
+  (``ops.routing.seq_sum``, ``ops.routing.segment_sum``).  Eager PyTorch forms no
   fused multiply-add across operations, so the JAX engine's ``_nofma``
   barriers have no counterpart here; this mode uses no ``addcmul``,
   ``lerp`` or ``torch.compile``.
 
+The routed turning fractions (``turning_fractions_step``:
+:func:`ops.turning_fractions`) are one launch of a CUDA kernel on the card
+(two where per-replica od flows are copied for its streamed design), and
+their plain version (``ops.turning_fractions_step_plain``) on the CPU.
 The node solve (``_node_solve``: :func:`ops.node_solve`) is one launch of
 a CUDA kernel on the card, on the fast path and on the exact-parity dense
 phi alike, and its plain version (``ops.node_solve_plain``) on the CPU.
 The ``"optimal"`` node solve runs the host LP (``lp_solver``) on the dense
-phi, one round trip to the host per step.
+phi, one round trip to the host per step.  Each hand kernel's op in
+``ops/`` chooses between its kernel and its plain version by the
+operands' device, and reads the tables the scenario built for it.
 
 Stochastic steps draw from an explicit ``torch.Generator`` in a fixed order:
 release, activity (skipped when every link's activity probability is zero),
@@ -62,11 +68,10 @@ from typing import Optional, Tuple
 import torch
 
 from .fd import link_flow_kv, speed_from_density
-from .ops import fused_history_reads
 from .ops.binom import binom_fast
-from .ops.ncurve import reciprocal_f32
-from .ops.node_solve import node_solve as _node_solve
-from .routing import turning_fractions_dense, turning_fractions_step
+from .ops.ncurve import fused_history_reads, reciprocal_f32
+from .ops.node_solve import _column, node_solve as _node_solve
+from .ops.routing import turning_fractions as turning_fractions_step, turning_fractions_dense
 from .state import EngineParams, NetworkState, StepOutputs
 from .topology import FD_TYPES
 from .tracing import span
@@ -103,21 +108,6 @@ def _binom(n, p, gen, stochastic: bool, mode: str = "exact"):
     u = draw(gen, False, nf.shape, _f32, nf.device)
     z = draw(gen, True, nf.shape, _f32, nf.device)
     return binom_fast(nf.to(_f32), p.to(_f32), u, z).to(nf.dtype)
-
-
-def _column(x: torch.Tensor, t) -> torch.Tensor:
-    """Column ``t`` of ``x``'s last (time) axis, clamped into range as the
-    JAX engine's traced index is: an RL step whose ``action_gap`` engine
-    steps run past the horizon reads the last column.  With a per-replica
-    ``t [B]``, replica b reads its own column of ``x [N, T+1]`` (shared) or
-    ``x [B, N, T+1]`` (per-replica tables); the result is ``[B, N]``."""
-    last = x.shape[-1] - 1
-    if not isinstance(t, torch.Tensor):
-        return x[..., min(max(t, 0), last)]
-    col = torch.clamp(t, 0, last).long()
-    if x.dim() == 2:
-        return x.index_select(1, col).T
-    return x.gather(2, col.view(-1, 1, 1).expand(-1, x.shape[1], 1)).squeeze(2)
 
 
 def _write_row(ring: torch.Tensor, t, period: int, value: torch.Tensor) -> None:
@@ -372,8 +362,8 @@ def step_fn(scn, ep: EngineParams, st: NetworkState,
                 S_all, density_all, recv_prev_all, cap_all = links.gather(
                     S, shared_density, st.recv_prev, cap_default)
                 od_flow_t = _column(ep.od_table, t)
-                phi_c = turning_fractions_step(
-                    scn.routing, scn.max_deg, density_all, recv_prev_all, cap_all, od_flow_t)
+                phi_c = turning_fractions_step(scn, density_all, recv_prev_all, cap_all,
+                                               od_flow_t)
                 if dense:
                     phi, phi_c = turning_fractions_dense(scn.routing, phi_c, ep.phi_base), None
             else:

@@ -10,6 +10,12 @@ source builds anew and an unchanged one is reused.  A failed compile
 raises with the compiler's output.  Building and loading are serialized by
 a lock, so threads that reach a kernel together for the first time (a
 threaded server's first requests) compile and load it once.
+
+Every op launches through :func:`launch`: the entry point by name, on the
+operands' device and its current stream, its error code checked, its
+launch counted under one lock.  ``ENTRIES`` names each source and its
+entry points' argument types.  Adding a kernel takes a source under
+``csrc/``, its entry in ``ENTRIES`` and its op module under ``ops/``.
 """
 
 import ctypes
@@ -23,10 +29,10 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "pednstream_tpu_torch"
-SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("ncurve.cu", "routing.cu", "binom.cu", "node_solve.cu"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
@@ -34,11 +40,30 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.RLock()
+# guards the launch counts: simulations step from several threads at once
+_COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+
+# rings, avg_tt and its replica stride, gamma and its stride, tau_shockwave
+# and its stride, out, B, H, E, t, the per-replica t (or null), unit_time,
+# windowed
+_NCURVE = [_P] * 4 + [_LL, _P, _LL, _P, _LL, _P] + [_I] * 4 + [_P, _F, _I]
+# each source under csrc/ and its entry points, each with its arguments
+# before the stream, which every one takes last
+ENTRIES = {
+    "ncurve.cu": {"ncurve_history_reads": _NCURVE, "ncurve_history_reads_f64": _NCURVE},
+    # the argument block
+    "routing.cu": {"routing_turning_fractions": [_P], "routing_turning_fractions_f64": [_P]},
+    # nf, p, its period, u, z, out, n
+    "binom.cu": {"binom_fast": [_P, _P, _LL, _P, _P, _P, _LL]},
+    # the argument block
+    "node_solve.cu": {"node_solve": [_P], "node_solve_f64": [_P]},
+}
+SOURCES = tuple(_PKG / "csrc" / name for name in ENTRIES)
 
 
 def _nvcc() -> str:
@@ -115,19 +140,27 @@ def library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
-    for fn in (lib.ncurve_history_reads, lib.ncurve_history_reads_f64):
-        # rings, avg_tt and its replica stride, gamma and its stride,
-        # tau_shockwave and its stride, out, B, H, E, t, the per-replica
-        # t (or null), unit_time, windowed, stream
-        fn.argtypes = [_P] * 4 + [_LL, _P, _LL, _P, _LL, _P] + [_I] * 4 + [_P, _F, _I, _P]
-    for fn in (lib.routing_turning_fractions, lib.routing_turning_fractions_f64):
-        fn.argtypes = [_P, _P]  # the argument block, stream
-    # nf, p, its period, u, z, out, n, stream
-    lib.binom_fast.argtypes = [_P, _P, _LL, _P, _P, _P, _LL, _P]
-    for fn in (lib.node_solve, lib.node_solve_f64):
-        fn.argtypes = [_P, _P]  # the argument block, stream
-    for fn in (lib.ncurve_history_reads, lib.ncurve_history_reads_f64,
-               lib.routing_turning_fractions, lib.routing_turning_fractions_f64,
-               lib.binom_fast, lib.node_solve, lib.node_solve_f64):
-        fn.restype = _I
+    for entries in ENTRIES.values():
+        for name, args in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [*args, _P]
+            fn.restype = _I
     return lib
+
+
+def launch(op: str, entry: str, device: torch.device, *args, counts=()) -> None:
+    """Calls the library's ``entry`` with ``args`` and the current stream
+    of the CUDA ``device``, that device current meanwhile, and raises
+    ``"<op> launch failed: CUDA error <n>"`` where it returns an error.
+    Then adds one to each ``(table, key)`` of ``counts`` under one lock."""
+    fn = getattr(library(), entry)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{op} launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        for table, key in counts:
+            table[key] += 1

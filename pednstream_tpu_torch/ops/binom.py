@@ -7,14 +7,12 @@ hand-written CUDA kernel of ``csrc/binom.cu`` on CUDA tensors, and runs
 two agree bit for bit on the card.
 """
 
-import threading
-
 import torch
 
+from ._build import launch
 from .ncurve import reciprocal_f32
 
 _F32 = torch.float32
-_COUNT_LOCK = threading.Lock()
 FAST_BINOM_EXACT_N = 16
 _F32_TINY = 1.1754943508222875e-38  # the smallest normal float32
 
@@ -73,8 +71,6 @@ def _p_period(p, shape) -> int:
 
 
 def _launch(nf, p, u, z):
-    from ._build import library
-
     dev = nf.device
     for name, x in (("nf", nf), ("p", p), ("u", u), ("z", z)):
         if x.device != dev:
@@ -90,18 +86,8 @@ def _launch(nf, p, u, z):
         raise ValueError(f"p of shape {tuple(p.shape)} and strides {p.stride()} does not "
                          f"repeat as a contiguous trailing block of {tuple(nf.shape)}")
     out = torch.empty_like(nf)
-    fn = library().binom_fast
-    args = (nf.data_ptr(), p.data_ptr(), period, u.data_ptr(), z.data_ptr(), out.data_ptr(),
-            nf.numel())
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"binom_fast launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        binom_fast.launches["float32"] += 1
+    launch("binom_fast", "binom_fast", dev, nf.data_ptr(), p.data_ptr(), period, u.data_ptr(),
+           z.data_ptr(), out.data_ptr(), nf.numel(), counts=[(binom_fast.launches, "float32")])
     return out
 
 

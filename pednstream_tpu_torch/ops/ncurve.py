@@ -20,9 +20,9 @@ the replicas sit at different times (JAX's ``vmap`` over a per-replica
 indices and coefficients.
 """
 
-import threading
-
 import torch
+
+from ._build import launch
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -30,8 +30,6 @@ _I32 = torch.int32
 _ENTRY = {torch.float32: "ncurve_history_reads", torch.float64: "ncurve_history_reads_f64"}
 # the launch count's key for a per-replica t
 PER_REPLICA_T = "_per_replica_t"
-# guards the launch counts: simulations step from several threads at once
-_COUNT_LOCK = threading.Lock()
 # rows per window of XLA's CPU tree reduction (float32 diffusion sum order)
 SLOT_WINDOW = 32
 
@@ -207,32 +205,22 @@ def _check(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave,
 
 def _launch(cum_in_ring, cum_out_ring, inflow_ring, avg_tt, gamma, tau_shockwave, strides,
             t, unit_time, windowed):
-    from ._build import library
-
     B, H, E = cum_in_ring.shape
     if B > 65535:
         raise ValueError(f"B={B} replicas: the kernel's grid takes at most 65535")
     dev, dtype = cum_in_ring.device, cum_in_ring.dtype
     out = torch.empty((3, B, E), dtype=dtype, device=dev)
-    fn = getattr(library(), _ENTRY[dtype])
     # a per-replica t goes as a pointer (the scalar is then unused), a
     # shared one as the scalar beside a null pointer
     per_replica = isinstance(t, torch.Tensor)
-    args = (cum_in_ring.data_ptr(), cum_out_ring.data_ptr(), inflow_ring.data_ptr(),
-            avg_tt.data_ptr(), strides[0], gamma.data_ptr(), strides[1],
-            tau_shockwave.data_ptr(), strides[2], out.data_ptr(), B, H, E,
-            0 if per_replica else t, t.data_ptr() if per_replica else None,
-            unit_time if dtype == torch.float64 else reciprocal_f32(unit_time), int(windowed))
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"fused_history_reads launch failed: CUDA error {err}")
     name = str(dtype).removeprefix("torch.") + (PER_REPLICA_T if per_replica else "")
-    with _COUNT_LOCK:
-        fused_history_reads.launches[name] += 1
+    launch("fused_history_reads", _ENTRY[dtype], dev,
+           cum_in_ring.data_ptr(), cum_out_ring.data_ptr(), inflow_ring.data_ptr(),
+           avg_tt.data_ptr(), strides[0], gamma.data_ptr(), strides[1],
+           tau_shockwave.data_ptr(), strides[2], out.data_ptr(), B, H, E,
+           0 if per_replica else t, t.data_ptr() if per_replica else None,
+           unit_time if dtype == torch.float64 else reciprocal_f32(unit_time), int(windowed),
+           counts=[(fused_history_reads.launches, name)])
     return out.unbind(0)
 
 

@@ -16,18 +16,34 @@ the order in which a replica's threads take the nodes.
 """
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
 
+from ._build import launch
+from .routing import seq_sum
+
 _ENTRY = {torch.float32: "node_solve", torch.float64: "node_solve_f64"}
-_COUNT_LOCK = threading.Lock()
 # the largest max degree M the kernel takes
 MAX_SLOTS = 32
 # launch plans a scenario keeps, one per operand layout (a batch, a dtype,
 # the strides); past this many they are dropped and made again
 MAX_PLANS = 64
+
+
+def _column(x: torch.Tensor, t) -> torch.Tensor:
+    """Column ``t`` of ``x``'s last (time) axis, clamped into range as the
+    JAX engine's traced index is: an RL step whose ``action_gap`` engine
+    steps run past the horizon reads the last column.  With a per-replica
+    ``t [B]``, replica b reads its own column of ``x [N, T+1]`` (shared) or
+    ``x [B, N, T+1]`` (per-replica tables); the result is ``[B, N]``."""
+    last = x.shape[-1] - 1
+    if not isinstance(t, torch.Tensor):
+        return x[..., min(max(t, 0), last)]
+    col = torch.clamp(t, 0, last).long()
+    if x.dim() == 2:
+        return x.index_select(1, col).T
+    return x.gather(2, col.view(-1, 1, 1).expand(-1, x.shape[1], 1)).squeeze(2)
 
 
 class NodeTables:
@@ -222,8 +238,6 @@ def kernel_args(scn, ep, t, S, R, phi_c=None, phi=None):
     and the routed rows ``phi_c`` are taken.  A shared step's demand column
     is read in place, a per-replica step's gathered.  The plan of an
     operand layout is made once and kept on the scenario's node tables."""
-    from ..engine import _column
-
     demand = ep.demand
     in_place = not isinstance(t, torch.Tensor)
     if in_place:  # the column _column would take, by its offset
@@ -261,22 +275,11 @@ def kernel_args(scn, ep, t, S, R, phi_c=None, phi=None):
 
 
 def _launch(scn, ep, t, S, R, phi_c, phi):
-    from ._build import library
-
     # the operands the block points into stay referenced until the launch
     # has taken it: demand_t and any dense copy are held by this frame
     args, outs, entry = kernel_args(scn, ep, t, S, R, phi_c, phi)
-    dev = S.device
-    fn = getattr(library(), entry)
-    if dev.index == torch.cuda.current_device():
-        err = fn(ctypes.addressof(args), torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(ctypes.addressof(args), torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"node_solve launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        node_solve.launches[str(S.dtype).removeprefix("torch.")] += 1
+    launch("node_solve", entry, S.device, ctypes.addressof(args),
+           counts=[(node_solve.launches, str(S.dtype).removeprefix("torch."))])
     return outs
 
 
@@ -312,8 +315,6 @@ def _classic_solve(dem_mat, r_pad, exact: bool = False):
     adds the column sums left to right (the sums of the floored ``g`` are
     of whole numbers, exact in any order)."""
     if exact:
-        from ..routing import seq_sum
-
         col_sums = seq_sum(dem_mat, -2).unsqueeze(-2)
     else:
         col_sums = dem_mat.sum(dim=-2, keepdim=True)
@@ -352,8 +353,6 @@ def node_solve_plain(scn, ep, t, S, R, phi_c=None, phi=None):
 
     The flows are then gathered back to the link axis.
     """
-    from ..engine import _column
-
     B = S.shape[0]
     N, M = scn.n_nodes, scn.max_deg
     demand_t = _column(ep.demand, t - 1)  # node.py:176; [N] or per replica [B, N]

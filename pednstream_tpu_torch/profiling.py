@@ -305,13 +305,12 @@ def ppo_profile(dataset: str, obs_mode: str, action_gap: int, history_window: in
 @contextlib.contextmanager
 def plain_hot_ops():
     """The engine step's three hot ops through their plain PyTorch versions
-    (``ops.binom_fast_plain``, ``routing.turning_fractions_step_plain``,
+    (``ops.binom_fast_plain``, ``ops.turning_fractions_step_plain``,
     ``ops.node_solve_plain``) instead of their kernels while it is entered:
     the step as it ran before the kernels, for a comparison in one process.
     It swaps module attributes, so no other thread may step meanwhile."""
     from . import engine
-    from .ops import binom_fast_plain, node_solve_plain
-    from .routing import turning_fractions_step_plain
+    from .ops import binom_fast_plain, node_solve_plain, turning_fractions_step_plain
 
     saved = (engine.binom_fast, engine.turning_fractions_step, engine._node_solve)
     engine.binom_fast = binom_fast_plain

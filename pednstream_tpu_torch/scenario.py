@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from .demand import ODManager, build_demand_table
-from .ops.node_solve import NodeTables
 from .device import DEFAULT, resolve
+from .ops.node_solve import NodeTables
+from .ops.routing import RoutingKernelTables
 from .routing import PathSetBuilder, RoutingTables, build_routing_tables
 from .state import EngineParams, NetworkState
 from .topology import TopologySpec, build_topology, parse_controllers
@@ -157,9 +158,12 @@ class Scenario:
         # write-back gathers into the flattened [N*M] node-slot axis
         self.end_flat = self.end_node * M + self.end_slot
         self.start_flat = self.start_node * M + self.start_slot
-        # the node solve kernel's tables (ops.node_solve)
+        # the node solve's and the routing kernels' tables (ops.node_solve,
+        # ops.routing)
         self.node_tables = NodeTables(
             topo, () if routing is None else routing.routed_ids.cpu().numpy(), self.device)
+        self.routing_kernel_tables = (None if routing is None
+                                      else RoutingKernelTables(routing, M))
         # reverse-occupancy thinning probability (link.py:382) in the flow
         # dtype: JAX's weak-typed 0.9 takes the dtype of the float-cast
         # pedestrian count it multiplies (engine.py:374,414)

@@ -29,12 +29,12 @@ import pytest
 import torch
 
 from pednstream_tpu_torch import NetworkEnvGenerator, build_scenario, concat_states, simulate
-from pednstream_tpu_torch import routing as _routing
 from pednstream_tpu_torch.env import PedNetParallelEnv
 from pednstream_tpu_torch.golden import FIELDS, TOL, golden_errors
 from pednstream_tpu_torch.ops import (PER_REPLICA_T, binom_fast, binom_fast_plain,
                                       fused_history_reads, fused_history_reads_plain,
-                                      node_solve, node_solve_plain, turning_fractions)
+                                      node_solve, node_solve_plain, turning_fractions,
+                                      turning_fractions_step_plain)
 from pednstream_tpu_torch.ops.routing import LANE_TILE
 from pednstream_tpu_torch.profiling import plain_hot_ops
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
@@ -694,13 +694,12 @@ def test_routing_kernel_equals_plain_bitwise(cuda, routed_scenarios, name, per_r
     streamed design); each call counted once, under its design."""
     scn, B = routed_scenarios[name]
     B = B if batch == "path" else batch
-    rt, M = scn.routing, scn.max_deg
     ops_ = routing_operands(scn, B, 5, per_replica_od, cuda)
-    key = str(rt.dist_util.dtype).removeprefix("torch.")
+    key = str(scn.routing.dist_util.dtype).removeprefix("torch.")
     design = "lanes" if B >= LANE_TILE else "rows"
     before = (turning_fractions.launches[key], dict(turning_fractions.launches_by_design))
-    got = _routing.turning_fractions_step(rt, M, *ops_)
-    want = _routing.turning_fractions_step_plain(rt, M, *ops_)
+    got = turning_fractions(scn, *ops_)
+    want = turning_fractions_step_plain(scn, *ops_)
     torch.cuda.synchronize()
     assert turning_fractions.launches[key] == before[0] + 1
     assert turning_fractions.launches_by_design == {**before[1], design: before[1][design] + 1}
@@ -867,7 +866,7 @@ def test_node_solve_float64_and_exact_parity_equal_plain_bitwise(
         cuda, routed_scenarios, node_scenarios, name, dense, batch):
     """float64 flows on the fast path (the compact rows in float64), and
     exact parity's dense phi, one per replica, with the column sums added
-    left to right (``routing.seq_sum``), in float64 (the golden and het
+    left to right (``ops.routing.seq_sum``), in float64 (the golden and het
     paths) and float32."""
     scn = node_scenarios[name] if name in node_scenarios else routed_scenarios[name][0]
     assert scn.exact_parity == dense

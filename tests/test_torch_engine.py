@@ -26,7 +26,7 @@ from pednstream_tpu_torch import engine
 from pednstream_tpu_torch.fd import speed_from_density
 from pednstream_tpu_torch import generator, interop
 from pednstream_tpu_torch.interop import numpy_leaves
-from pednstream_tpu_torch.routing import turning_fractions_step
+from pednstream_tpu_torch.ops.routing import turning_fractions as turning_fractions_step
 from pednstream_tpu_torch.scenario import build_scenario
 
 # the port runs on the card unless asked: every CPU test asks
@@ -104,7 +104,7 @@ def test_turning_fractions_match_jax(name):
                            jnp.asarray(dens), jnp.asarray(recv), jnp.asarray(cap),
                            jnp.asarray(od), jnp.asarray(js.engine_params.phi_base),
                            exact=False, compact=True)
-        got = turning_fractions_step(ts.routing, ts.max_deg, torch.from_numpy(dens)[None],
+        got = turning_fractions_step(ts, torch.from_numpy(dens)[None],
                                      torch.from_numpy(recv)[None],
                                      torch.from_numpy(cap)[None], torch.from_numpy(od))
         np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=RTOL, atol=1e-7)
@@ -125,8 +125,8 @@ def _routing_operands(ts):
         engine.step_fn(ts, ts.engine_params, ts.init_state(), stochastic=False)
     finally:
         engine.turning_fractions_step = real
-    (rt, M, dens, recv, cap, od), = seen
-    return rt, M, dens, recv, cap, od
+    (scn, dens, recv, cap, od), = seen
+    return scn, dens, recv, cap, od
 
 
 def test_turning_fractions_bitwise_at_delft_step_1():
@@ -134,14 +134,14 @@ def test_turning_fractions_bitwise_at_delft_step_1():
     JAX's ``turning_fractions_step(exact=False, compact=True)`` bit for
     bit, at B = 1 and for a batch of 6 replicas (each row on other
     densities): the logit's exp is XLA's float32 polynomial
-    (``routing.exp_like_xla``), the one-hot products sum in its GEMV lanes
+    (``ops.routing.exp_like_xla``), the one-hot products sum in its GEMV lanes
     (``routing.GEMV_LANES``), the guard's row sum left to right.  JAX's
     batched (vmapped) form is a GEMM whose order follows Eigen's blocking;
     the port's rows equal JAX's one-replica result, and JAX's batch within
     rtol 1e-6 (ROADMAP.md §3)."""
     js = jax_generator.NetworkEnvGenerator().create_network("delft")
     ts = NetworkEnvGenerator().create_network("delft")
-    rt, M, dens, recv, cap, od = _routing_operands(ts)
+    scn, dens, recv, cap, od = _routing_operands(ts)
     jt = jax.jit(lambda d, r, c, o: jax_turning(
         js.routing, js.n_nodes, js.max_deg, js.node_arity, js.slot_valid, d, r, c, o,
         js.engine_params.phi_base, exact=False, compact=True))
@@ -151,9 +151,9 @@ def test_turning_fractions_bitwise_at_delft_step_1():
                                                .astype(np.float32))])
     want = [np.asarray(jt(*(jnp.asarray(x.numpy()) for x in (d, recv[0], cap[0], od))))
             for d in dens_b]
-    got1 = turning_fractions_step(rt, M, dens, recv, cap, od)
+    got1 = turning_fractions_step(scn, dens, recv, cap, od)
     np.testing.assert_array_equal(got1[0].numpy(), want[0])
-    got = turning_fractions_step(rt, M, dens_b, recv.expand(B, -1), cap.expand(B, -1), od)
+    got = turning_fractions_step(scn, dens_b, recv.expand(B, -1), cap.expand(B, -1), od)
     for b in range(B):
         np.testing.assert_array_equal(got[b].numpy(), want[b])
     jb = np.asarray(jax.vmap(jt, in_axes=(0, None, None, None))(
@@ -174,7 +174,7 @@ def test_segment_sums_bitwise_on_env_tables(groups):
     GEMV)."""
     from pednstream_tpu.env import PedNetParallelEnv as JaxEnv
     from pednstream_tpu_torch.env import PedNetParallelEnv
-    from pednstream_tpu_torch.routing import segment_sum
+    from pednstream_tpu_torch.ops.routing import segment_sum
 
     kw = dict(od_randomize=True, seed=0)
     jrt = JaxEnv("45_intersections", **kw).scn.routing

@@ -28,10 +28,11 @@ from pednstream_tpu.ops import fused_history_reads as jax_fused
 from pednstream_tpu.randomize import randomize_engine_params_batched as jax_draws
 from pednstream_tpu.scenario import build_scenario as jax_build
 from pednstream_tpu_torch import concat_states, generator, interop, simulate, step_fn
-from pednstream_tpu_torch.engine import _column, _write_row
+from pednstream_tpu_torch.engine import _write_row
 from pednstream_tpu_torch.env import PedNetEnvCore, build_agent_spec
 from pednstream_tpu_torch.interop import numpy_leaves
 from pednstream_tpu_torch.ops import fused_history_reads, fused_history_reads_plain, lookback
+from pednstream_tpu_torch.ops.node_solve import _column
 from pednstream_tpu_torch.scenario import build_scenario
 
 # the port runs on the card unless asked: every CPU test asks

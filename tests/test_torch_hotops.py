@@ -13,18 +13,17 @@ On CPU tensors the wrappers run their plain versions, so here:
   to the plain version on the delft and 45_intersections tables in every
   table form (float32 GEMV lanes, float64 lanes, exact parity) with shared
   and per-replica od flows: the walk of the routing tables -- one block
-  per (routed node, replica) reading its node's ranges through
-  ``node_offsets``, each (segment, lane) walked to its first -1, the lanes
-  combined in XLA's order (:func:`kernel_walk`) -- and the streamed design
-  -- each routed node's up slot on its own, its groups and entries in
-  ascending id through the ``lane_*`` codes into per-(segment, GEMV lane)
-  accumulators (:func:`kernel_stream`);
+  per (routed node, replica) reading its node's ranges through the kernel
+  tables' ``node_offsets``, each (segment, lane) walked to its first -1,
+  the lanes combined in XLA's order (:func:`kernel_walk`) -- and the
+  streamed design -- each routed node's up slot on its own, its groups and
+  entries in ascending id through the kernel tables' ``lane_*`` codes into
+  per-(segment, GEMV lane) accumulators (:func:`kernel_stream`);
 - the dense turning fractions, now the compact rows placed at
   ``routed_ids``, are held to the JAX exact path on a routed golden
   scenario;
-- both dispatch points (``ops.binom_fast``, ``routing.
-  turning_fractions_step``) take the plain version for CPU tensors and
-  count no launch; the routing kernel's launcher refuses them;
+- both dispatch points (``ops.binom_fast``, ``ops.turning_fractions``)
+  take the plain version for CPU tensors and count no launch;
 - the node solve's static tables (each link's (node, slot) on both ends,
   the routed rows, the flags, the order) are checked against the
   topology; its kernel's walk over them is written out in numpy and held
@@ -33,7 +32,10 @@ On CPU tensors the wrappers run their plain versions, so here:
   has it; the wrapper takes it for CPU tensors and counts no launch; the
   argument block reads each path's operands by their strides; and the
   benchmark's bound (``portbench/bounds/node_solve.py``) counts a small
-  network's bytes as worked out by hand.
+  network's bytes as worked out by hand;
+- no module under ``ops/`` imports the engine or a step function of the
+  host compiler (``routing.py``), and ``routing.py`` imports nothing from
+  ``ops/``.
 
 The card tests (``tests/test_torch_cuda.py``) hold the kernels to these
 plain versions on the card.
@@ -57,9 +59,9 @@ from pednstream_tpu.scenario import build_scenario as jax_build
 from pednstream_tpu_torch import engine, generator, ops
 from pednstream_tpu_torch.golden import fixture_args
 from pednstream_tpu_torch.ops.binom import binom_fast_plain
-from pednstream_tpu_torch.routing import (NODE_TABLES, exp_like_xla, turning_fractions_dense,
-                                          turning_fractions_step,
-                                          turning_fractions_step_plain)
+from pednstream_tpu_torch.ops.routing import (NODE_TABLES, exp_like_xla, turning_fractions,
+                                              turning_fractions_dense,
+                                              turning_fractions_step_plain)
 from pednstream_tpu_torch.scenario import build_scenario
 
 NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
@@ -157,13 +159,14 @@ def test_binom_wrapper_takes_the_plain_version_on_the_cpu():
 # the routed turning fractions
 # ---------------------------------------------------------------------------
 
-def kernel_walk(rt, M, density, recv_prev, cap_default, od_flow_t):
+def kernel_walk(scn, density, recv_prev, cap_default, od_flow_t):
     """``csrc/routing.cu`` written out in torch: for each routed node r (a
     block, all replicas at once) its ranges of the tables from
     ``node_offsets``, its values staged as node-local vectors, every
     (segment, lane) walked left to right to its first -1 (+0.0 added once
     when the row is shorter than the table), the lanes combined, then the
     guard with its row sum left to right."""
+    rt, M = scn.routing, scn.max_deg
     f = rt.dist_util.dtype
     B, Q = density.shape[0], rt.group_members.shape[1]
     MM = M * M
@@ -189,7 +192,7 @@ def kernel_walk(rt, M, density, recv_prev, cap_default, od_flow_t):
             return (lane[0] + lane[1]) + lane[2]
         return lane[0]
 
-    off = rt.node_offsets.tolist()
+    off = scn.routing_kernel_tables.node_offsets.tolist()
     for r in range(rt.num_routed):
         (k0, g0, u0, ug0), (k1, g1, u1, ug1) = off[r], off[r + 1]
         w = od[:, rt.uo_od[u0:u1]]
@@ -221,7 +224,7 @@ def kernel_walk(rt, M, density, recv_prev, cap_default, od_flow_t):
     return out
 
 
-def kernel_stream(rt, M, density, recv_prev, cap_default, od_flow_t):
+def kernel_stream(scn, density, recv_prev, cap_default, od_flow_t):
     """``csrc/routing.cu``'s streamed design written out in torch, every
     replica at once: for each unit (a routed node's up slot) its down
     slots' capacity and density terms; its groups' od flows in ascending
@@ -231,14 +234,16 @@ def kernel_stream(rt, M, density, recv_prev, cap_default, od_flow_t):
     accumulator starting at -0.0 and adding +0.0 once where its row is
     shorter than the table (the codes' short bits); the rows combined in
     XLA's order; the guard of the unit's row."""
+    rt, tabs, M = scn.routing, scn.routing_kernel_tables, scn.max_deg
     f = rt.dist_util.dtype
     B, Q = density.shape[0], rt.group_members.shape[1]
     od = od_flow_t.to(f)
     od = od.expand(B, -1) if od.dim() == 1 else od
     dens_all, rp_all, cd_all = density.to(torch.float32), recv_prev.to(f), cap_default.to(f)
     out = torch.empty((B, rt.num_routed, M, M), dtype=f)
-    entry, group, unit = rt.lane_entry.tolist(), rt.lane_group.tolist(), rt.lane_unit.tolist()
-    dist_util = rt.lane_dist_util
+    entry, group, unit = (tabs.lane_entry.tolist(), tabs.lane_group.tolist(),
+                          tabs.lane_unit.tolist())
+    dist_util = tabs.lane_dist_util
 
     def fresh(n):
         return [torch.full((B,), -0.0, dtype=f) for _ in range(n)]
@@ -252,7 +257,7 @@ def kernel_stream(rt, M, density, recv_prev, cap_default, od_flow_t):
         return lane[0]
 
     for r in range(rt.num_routed):
-        link = rt.lane_down_link[r].long()
+        link = tabs.lane_down_link[r].long()
         real, safe = link >= 0, link.clamp(min=0)
         rp = rp_all[:, safe]
         cap = torch.where(real, torch.where(rp >= 0, rp, cd_all[:, safe]), 100.0)
@@ -263,7 +268,7 @@ def kernel_stream(rt, M, density, recv_prev, cap_default, od_flow_t):
             acc = fresh(Q)
             for p, code, _, _ in group[g0:g1]:
                 acc[code >> 8 & 7] = acc[code >> 8 & 7] + od[:, p]
-            tot = rows_sum(acc, rt.lane_uo_short[ug].item()) if ug >= 0 else None
+            tot = rows_sum(acc, tabs.lane_uo_short[ug].item()) if ug >= 0 else None
             inv = torch.tensor(1.0, dtype=f) / (g1 - g0)
             phi = fresh(M * Q)
             for p, code, owners, _ in group[g0:g1]:
@@ -286,7 +291,7 @@ def kernel_stream(rt, M, density, recv_prev, cap_default, od_flow_t):
                     phi[d * Q + lane] = phi[d * Q + lane] + (zi / zsum) * pu
                 k += n
             row = torch.stack([rows_sum(phi[d * Q:(d + 1) * Q],
-                                        rt.lane_phi_short[(r * M + u) * M + d].item())
+                                        tabs.lane_phi_short[(r * M + u) * M + d].item())
                                for d in range(M)], -1)
             rowsum = row[:, :1]
             for j in range(1, M):
@@ -339,13 +344,14 @@ def routing_operands(scn, B, seed, per_replica_od):
     return dens, recv, cap, od
 
 
-def check_node_offsets(rt, M):
+def check_node_offsets(scn):
     """Each routed node's ranges hold its own rows and nothing else."""
-    off = rt.node_offsets
+    rt, tabs, M = scn.routing, scn.routing_kernel_tables, scn.max_deg
+    off = tabs.node_offsets
     assert tuple(off.shape) == (rt.num_routed + 1, len(NODE_TABLES))
     assert off[-1].tolist() == [rt.num_entries, rt.num_groups, len(rt.uo_od),
                                 rt.num_uo_groups]
-    assert tuple(rt.node_max) == tuple(torch.diff(off, dim=0).amax(dim=0).tolist())
+    assert tuple(tabs.node_max) == tuple(torch.diff(off, dim=0).amax(dim=0).tolist())
     node = torch.repeat_interleave(torch.arange(rt.num_routed), torch.diff(off[:, 0]))
     assert torch.equal(node, rt.te_phi_c // (M * M))
     for col, ids in ((1, rt.te_group), (2, rt.te_uo_idx)):
@@ -360,12 +366,11 @@ def check_node_offsets(rt, M):
 @pytest.mark.parametrize("per_replica_od", [False, True])
 def test_kernel_walk_is_the_plain_version_on_env_tables(env_tables, per_replica_od, model):
     scn = env_tables
-    rt, M = scn.routing, scn.max_deg
+    rt = scn.routing
     assert rt.group_members.shape[1] == 5 and rt.num_routed == 43
-    check_node_offsets(rt, M)
+    check_node_offsets(scn)
     ops_ = routing_operands(scn, 3, 11, per_replica_od)
-    assert_bits_equal(KERNEL_MODELS[model](rt, M, *ops_),
-                      turning_fractions_step_plain(rt, M, *ops_))
+    assert_bits_equal(KERNEL_MODELS[model](scn, *ops_), turning_fractions_step_plain(scn, *ops_))
 
 
 @pytest.mark.parametrize("model", KERNEL_MODELS)
@@ -374,24 +379,25 @@ def test_kernel_walk_is_the_plain_version_on_env_tables(env_tables, per_replica_
                                            (torch.float64, True, 1)])
 def test_kernel_walk_is_the_plain_version_on_delft_tables(ftype, exact, Q, model):
     scn = delft(ftype, exact)
-    rt, M = scn.routing, scn.max_deg
+    rt = scn.routing
     assert rt.group_members.shape[1] == Q and rt.dist_util.dtype == ftype
-    check_node_offsets(rt, M)
+    check_node_offsets(scn)
     for per_replica_od in (False, True):
         ops_ = routing_operands(scn, 4, 12, per_replica_od)
-        assert_bits_equal(KERNEL_MODELS[model](rt, M, *ops_),
-                          turning_fractions_step_plain(rt, M, *ops_))
+        assert_bits_equal(KERNEL_MODELS[model](scn, *ops_),
+                          turning_fractions_step_plain(scn, *ops_))
 
 
 def test_routing_wrapper_takes_the_plain_version_on_the_cpu():
     scn = delft(torch.float32, False)
     ops_ = routing_operands(scn, 2, 13, False)
-    before = dict(ops.turning_fractions.launches)
-    got = turning_fractions_step(scn.routing, scn.max_deg, *ops_)
-    assert_bits_equal(got, turning_fractions_step_plain(scn.routing, scn.max_deg, *ops_))
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ops.turning_fractions(scn.routing, scn.max_deg, *ops_)
-    assert ops.turning_fractions.launches == before == {"float32": 0, "float64": 0}
+    before = (dict(ops.turning_fractions.launches),
+              dict(ops.turning_fractions.launches_by_design))
+    got = ops.turning_fractions(scn, *ops_)
+    assert_bits_equal(got, turning_fractions_step_plain(scn, *ops_))
+    assert engine.turning_fractions_step is ops.turning_fractions
+    assert (ops.turning_fractions.launches, ops.turning_fractions.launches_by_design) == before
+    assert before == ({"float32": 0, "float64": 0}, {"lanes": 0, "rows": 0})
 
 
 def test_dense_placement_is_the_jax_exact_path():
@@ -417,7 +423,7 @@ def test_dense_placement_is_the_jax_exact_path():
         od = od * scale
         want = np.asarray(jt(*(jnp.asarray(x[0].numpy()) for x in (dens, recv, cap)),
                              jnp.asarray(od.numpy()), jnp.asarray(js.engine_params.phi_base)))
-        phi_c = turning_fractions_step(ts.routing, ts.max_deg, dens, recv, cap, od)
+        phi_c = turning_fractions(ts, dens, recv, cap, od)
         got = turning_fractions_dense(ts.routing, phi_c, ts.engine_params.phi_base)
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got[0].numpy(), want)
@@ -446,6 +452,47 @@ def test_plain_hot_ops_swaps_and_restores():
     for name, x in vars(finals[0]).items():
         if isinstance(x, torch.Tensor):
             assert_bits_equal(x, getattr(finals[1], name))
+
+
+def _imported(path: Path, package: list) -> list:
+    """``(module, name)`` of every import in the module at ``path`` of the
+    package ``package`` (its dotted parts), at any depth of the module,
+    relative imports resolved; ``name`` is None for ``import module``."""
+    import ast
+
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [(a.name, None) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            out += [(module, a.name) for a in node.names]
+    return out
+
+
+def test_ops_import_neither_the_engine_nor_a_routing_step():
+    """The hand kernels' seam points one way: engine -> ops/<op>.py ->
+    ops/_build.py.  No module under ``ops/`` imports the engine (nor the
+    engine's names through the package), and from the host compiler
+    ``routing.py`` it takes only its tables' type and the GEMV row rule,
+    never a step function; ``routing.py`` imports nothing from ``ops/``."""
+    pkg = Path(ops.__file__).parent.parent
+    host_compiler = {"RoutingTables", "_gemv_rows"}
+    bad = []
+    for path in sorted((pkg / "ops").glob("*.py")):
+        for module, name in _imported(path, ["pednstream_tpu_torch", "ops"]):
+            full = module if name is None else f"{module}.{name}"
+            if (module.startswith("pednstream_tpu_torch.engine")
+                    or full == "pednstream_tpu_torch.engine"
+                    or (module == "pednstream_tpu_torch.routing"
+                        and name not in host_compiler)):
+                bad.append(f"ops/{path.name}: {full}")
+    for module, name in _imported(pkg / "routing.py", ["pednstream_tpu_torch"]):
+        full = module if name is None else f"{module}.{name}"
+        if full.startswith("pednstream_tpu_torch.ops"):
+            bad.append(f"routing.py: {full}")
+    assert not bad, bad
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +585,7 @@ def kernel_node_walk(scn, ep, t, S, R, phi_c, phi=None):
     (element i into accumulator i % 4, combined ((a0 + a1) + a2) + a3; on a
     dense phi of exact parity left to right), and the flows written back at
     each node's own links (every link written once), in the flows' dtype."""
-    from pednstream_tpu_torch.engine import _column
+    from pednstream_tpu_torch.ops.node_solve import _column
 
     tabs = scn.node_tables
     B, E = S.shape
