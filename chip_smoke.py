@@ -47,8 +47,10 @@ exits non-zero):
    prints device µs (a CUDA graph of launches), wrapper host µs, the plain
    version's time and the bound (bytes this data needs over the memory
    rate against float operations over the float32 or float64 rate); where
-   the batch takes the routing kernel's streamed design, its walk is held
-   and timed on the same operands too.  The node solve (``ops.node_solve``,
+   the batch takes the routing kernel's streamed design, its geometry is
+   printed (warps a block, as ``turning_fractions.launches_by_warps``
+   counted the launches, registers a thread and resident blocks an SM) and
+   its walk is held and timed on the same operands too.  The node solve (``ops.node_solve``,
    ``csrc/node_solve.cu``) at the main path's and the env episode's real
    operands, and random operands at every other form the paths give it:
    delft at B=1024, the served melbourne at B=1, grid_50x50 at the sweeps'
@@ -747,13 +749,16 @@ def hold_routing(card, key, label, scn, ops, plain_iters) -> dict:
     ``ops``, under the design the batch takes, beside the bound of
     ``portbench/bounds/turning_fractions.py`` (which counts the kernel's
     node offsets with the routing tables); where that is the streamed
-    design, the walk is held bitwise on the same operands too, and its
-    device time kept beside (``walk_ms``).  Prints the case, and returns it
-    with its design."""
+    design, its geometry is printed (the warps a block its launches were
+    counted under in ``launches_by_warps``, its registers a thread, spilled
+    bytes and resident blocks an SM, ``ops.routing.lane_occupancy``), and the
+    walk is held bitwise on the same operands too, its device time kept
+    beside (``walk_ms``).  Prints the case, and returns it with its design."""
     from types import SimpleNamespace
 
     import torch
     from pednstream_tpu_torch.ops import turning_fractions, turning_fractions_step_plain
+    from pednstream_tpu_torch.ops.routing import lane_occupancy
     from portbench.bounds.turning_fractions import least_seconds_call
 
     def fn(*o):
@@ -768,11 +773,23 @@ def hold_routing(card, key, label, scn, ops, plain_iters) -> dict:
     bound_s = least_seconds_call(tables, scn.max_deg, dens.shape[0],
                                  int((recv[:, links] < 0).sum()), od.dim() == 2)
     before = dict(turning_fractions.launches_by_design)
+    before_warps = dict(turning_fractions.launches_by_warps)
     case = hold_hot_kernel(card, "turning_fractions", key, label, fn, plain, ops, bound_s,
                            plain_iters)
     design, = (d for d, n in turning_fractions.launches_by_design.items() if n != before[d])
     case["design"] = design
     if design == "lanes":
+        # the streamed kernel's geometry at this batch: the warps a block its
+        # launches counted under, and its registers and residency on the card
+        warps, = (w for w, n in turning_fractions.launches_by_warps.items()
+                  if n != before_warps[w])
+        occupancy = lane_occupancy(scn.routing_kernel_tables, dens.shape[0], dens.device)
+        if occupancy["warps"] != warps:
+            raise AssertionError(f"turning_fractions ({label}) counted {warps} warps a block, "
+                                 f"its geometry gives {occupancy['warps']}")
+        case.update(occupancy)
+        emit("hot_kernel_geometry", kernel="turning_fractions", dtype=key, operands=label,
+             launches_by_warps=dict(turning_fractions.launches_by_warps), **occupancy, card=card)
         with routing_walk():
             got, want = fn(*ops), plain(*ops)
             torch.cuda.synchronize()

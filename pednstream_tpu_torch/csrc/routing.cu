@@ -52,30 +52,44 @@
 // a block holds one unit, a routed node's up slot, for 32 replicas: every
 // sum splits by up slot (a softmax group is (node, od, up), the P(od | up)
 // sum is per (node, up), a phi row and the guard's row are the up slot's).
-// The grid runs over (unit, replica tile), the units with the most entries
-// first so that their blocks do not form the tail.  The unit's groups and
-// entries stream past once per block in ascending id, read through
-// warp-uniform loads of int32 codes listed unit by unit
-// (routing.py::_lane_tables), and every lane adds each entry into the
-// accumulator of its (segment, GEMV row).  The rule by which the build
-// gives an id its row, id % W below total - total % W and the epilogue
-// above, is the one the member tables hold, so each accumulator receives
-// its row's members in the row's order and the result is the walk's bit
-// for bit: accumulators start at -0.0 (so the first member is taken as it
-// is) and add +0.0 once when their row is shorter than the table's width
-// (the codes' "short" bits).  The (node, up) sum comes first; then group
-// by group the capacity sums, z and its sums, and each entry's
-// c = (z / zsum) * P(od | up) into its phi slot; then the guard.  Where
-// the units and tiles alone leave SMs idle (small B), a unit gets W warps
-// (ops/routing.py::lane_warps), each owning some of its phi accumulators
-// and working only the groups that add into them, so the warps meet once,
-// before the guard.  Per-replica od flows (the env passes a strided column
-// of its [B, P, T+1] table, each flow in its own 32-byte sector) are first
-// copied to a [P, B] buffer (turning_fractions_kernel_od_by_pair), so a
-// warp reads the flows of its 32 replicas as one 128-byte line.  What
-// bounds it: each unit's chain per entry of about 100 instructions with
-// two correctly rounded divisions and the exp polynomial, at the 32 warps
-// an SM's registers hold; the tables are read once per 32 replicas.  Below
+// The grid runs tile by tile of replicas, and within a tile over the
+// units, those with the most entries first so that their blocks do not
+// form the tail: the blocks in flight then gather their link terms and od
+// flows from a few tiles' rows, which stay in L2, where unit by unit every
+// block would sweep all the replicas' rows (that alone halved delft's
+// time).  The unit's groups and entries stream past once per block in
+// ascending id, read through warp-uniform loads of int32 codes listed unit
+// by unit (routing.py::_lane_tables).  Every sum keeps the member tables'
+// order: the rule by which the build gives an id its GEMV row, id % W
+// below total - total % W and the epilogue above, is the one the tables
+// hold, and row accumulators start at -0.0 (so the first member is taken
+// as it is) and add +0.0 once when their row is shorter than the table's
+// width (the codes' "short" bits).  A softmax group of up to four entries
+// sums by its plan instead (routing.py::_sum_plan): its record lists its
+// entries in the order in which the row accumulators, combined, add them,
+// with the shape of that tree, so its two sums are a few adds and no row
+// is selected at run time; longer groups keep the accumulators.  The
+// (node, up) sum comes first; then group by group the capacity sum, z and
+// its sum, each entry's c = (z / zsum) * P(od | up); each c into its phi
+// slot's accumulator; then the guard.  A block has W warps
+// (ops/routing.py::lane_warps: at least two where a unit has the groups,
+// more where the batch alone leaves SMs idle), so an SM holds 40 warps at
+// the kernel's 48 registers a thread, where one-warp blocks stop at its 32
+// blocks.  The warps share a unit's groups out chunk by chunk and work
+// them on their own, each writing its contributions to the chunk's shared
+// buffer; after a barrier the contributions are added into the phi
+// accumulators in ascending id, so the order and the bits do not depend
+// on W.  A zero dividend, common among od flows and capacities, skips the
+// correctly rounded division, which would take its slow path.
+// Per-replica od flows (the env passes a strided column of its [B, P, T+1]
+// table, each flow in its own 32-byte sector) are first copied to a [P, B]
+// buffer (turning_fractions_kernel_od_by_pair), so a warp reads the flows
+// of its 32 replicas as one 128-byte line.  What bounds it: each group's
+// chain of about 100 instructions with two or three correctly rounded
+// divisions and the exp polynomial, the (node, up) sum's od reads and the
+// ordered adds into phi, no one of them above a tenth of the time; more
+// warps an SM (40 registers, 48 warps) or two groups side by side in a
+// warp did not help.  The tables are read once per 32 replicas.  Below
 // about 64 replicas on large tables, and on tiny ones, the walk is a few
 // microseconds faster; the threshold stays at a full warp of replicas.
 
@@ -148,14 +162,13 @@ struct RoutingArgs {
     // or 0 for the walk
     long long lanes;
     const int* lane_entry;      // [K] by unit
-    const int* lane_group;      // [G, 4] by unit
+    const int* lane_group;      // [G, 4] by unit: od pair, code, first entry, entry codes
     const int* lane_unit;       // [NR * M + 1, 3]
     const int* lane_order;      // [NR * M]
     const int* lane_down_link;  // [NR, M]
     const int* lane_uo_short;   // [UG]
     const int* lane_phi_short;  // [NR * M * M]
     const void* lane_dist_util;  // [K] T by unit
-    long long group_max;        // the most entries a softmax group holds
     long long P;                // od pairs
     void* od_by_pair;           // [P, B] T scratch for per-replica od flows
 };
@@ -295,6 +308,28 @@ __global__ void turning_fractions_kernel(const RoutingArgs a) {
 // ---- the streamed design: a block per (routed node's up slot, 32 replicas) ----
 
 constexpr int LANE_TILE = 32;  // a block's replicas, a replica a lane of each warp
+// the most entries a chunk of a unit's groups holds: one entry code a lane
+// (ops/routing.py::LANE_CHUNK)
+constexpr int LANE_CHUNK = 32;
+// the most warps a block has (ops/routing.py::LANE_WARPS_MAX), and the
+// blocks of that size an SM holds at the register budget this asks for:
+// at most 48 registers a thread, so that an SM holds 40 warps (at 40 it
+// held 48, but spilled in the group loop and ran slower)
+constexpr int LANE_WARPS_MAX = 8;
+constexpr int LANE_MIN_BLOCKS = 5;
+
+// a / b as div_rn gives it, but a zero a where b > 0 is the quotient itself
+// (with a's sign) and skips the division, whose correctly rounded form
+// takes its slow path on a zero dividend: most od flows are zero (99.3 % at
+// the env benchmark's step 300)
+template <typename T>
+__device__ __forceinline__ T div_zero(T a, T b) {
+    if (a == T(0) && b > T(0)) return a;
+    return div_rn(a, b);
+}
+
+// element i of a per-replica shared array whose lane's first element is p
+#define AT(p, i) (p)[(i) * LANE_TILE]
 
 // The sum of one segment from its Q row accumulators: +0.0 added to the
 // rows shorter than the table's width (bit q of `short_rows`), then the
@@ -314,7 +349,8 @@ __device__ __forceinline__ T rows_sum(const T (&l)[Q], int short_rows) {
 }
 
 // v added into row `row` of the Q register accumulators (row is the same
-// on every lane, so the unrolled selects cost no divergence)
+// on every lane, so the unrolled selects cost no divergence; a row out of
+// range adds nothing)
 template <typename T, int Q>
 __device__ __forceinline__ void add_row(T (&l)[Q], int row, T v) {
 #pragma unroll
@@ -348,137 +384,235 @@ __global__ void turning_fractions_kernel_od_by_pair(const RoutingArgs a) {
     }
 }
 
-// One unit, a routed node's up slot u, for 32 replicas (a replica a
-// lane), by W warps (blockDim.y).  Warp w owns the unit's phi accumulators
-// (down slot d, GEMV row q) with (d * Q + q) % W == w: it works the groups
-// with an entry in one of them (the group's `owners` bits) and adds only
-// into its own, so each accumulator takes its members in ascending id from
-// one warp and the warps meet only before the guard.  W is 1 where the
-// batch alone fills the card.  A warp's lanes load 32 groups' records at
-// once; a ballot picks the warp's groups and a scan of the entry counts
-// finds their entries.  The (node, up) sum (every warp's own copy), each
-// softmax group's capacity and exp sums and the group being worked on
-// live in registers; each replica's down slots' capacity and density
-// terms, each warp's group's z and the phi row's accumulators [M][Q] in
-// shared memory, LANE_TILE words apart (ops/routing.py::lane_bytes).  A
-// lane past the batch reads the last replica's operands and writes nothing.
+// The sum of a group's N values in the order and shape of its plan
+// (ops/routing.py::_sum_plan): the bits of its Q row accumulators combined
+// in XLA's order, with no row selected at run time.  `zero` is +0.0 where
+// a row of the group is short, else -0.0 (which changes nothing).
+template <typename T, int N>
+__device__ __forceinline__ T plan_sum(const T (&v)[N], bool balanced, T zero) {
+    T s = v[0];
+    if constexpr (N == 2) {
+        s = add_rn(v[0], v[1]);
+    } else if constexpr (N == 3) {
+        s = add_rn(add_rn(v[0], v[1]), v[2]);
+    } else if constexpr (N == 4) {
+        const T ab = add_rn(v[0], v[1]);
+        s = balanced ? add_rn(ab, add_rn(v[2], v[3])) : add_rn(add_rn(ab, v[2]), v[3]);
+    }
+    return add_rn(s, zero);
+}
+
+// One softmax group of N entries for a warp's 32 replicas: its capacity
+// sum, each entry's z and their sum, then each entry's contribution
+// c = (z / zsum) * pu into cbuf at the entry's place in the group.  The
+// bytes of `codes` give the entries in the order the group's sums take
+// them, each its down slot and its place; so nothing waits on a table
+// read, both sums are a few adds, and the entries' loads, divisions and
+// exps are independent of each other.
+template <typename T, int Q, int N>
+__device__ __forceinline__ void group_chain(const T* cap, const T* bn, const T* dist_util,
+                                            unsigned codes, int gcode, T pu, T neg_temp,
+                                            T omega, T* cbuf) {
+    const bool balanced = (gcode >> 16) & 1;
+    const T zero = (gcode >> 17) & 1 ? T(0) : T(-0.0);
+    T c[N], z[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) c[i] = AT(cap, (codes >> 8 * i) & 31);
+    const T cap_eps = add_rn(plan_sum(c, balanced, zero), T(1e-6));
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        const int at = (codes >> (8 * i + 5)) & 3;
+        const T util = sub_rn(add_rn(__ldg(dist_util + at), AT(bn, (codes >> 8 * i) & 31)),
+                              div_zero(mul_rn(omega, c[i]), cap_eps));
+        z[i] = exp_like_xla(mul_rn(neg_temp, util));
+    }
+    const T zsum = plan_sum(z, balanced, zero);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+        AT(cbuf, (codes >> (8 * i + 5)) & 3) = mul_rn(div_rn(z[i], zsum), pu);
+}
+
+// group_chain for a group of any size n, its codes read from `entry`, its
+// sums in Q row accumulators and its z kept in cbuf: the groups of more
+// than four entries.
 template <typename T, int Q>
-__global__ void __launch_bounds__(1024) turning_fractions_kernel_lanes(const RoutingArgs a) {
+__device__ __forceinline__ void group_chain_long(const T* cap, const T* bn, const T* dist_util,
+                                                 const int* entry, int n, int short_rows, T pu,
+                                                 T neg_temp, T omega, T* cbuf) {
+    T acc[Q];
+    fresh(acc);
+    for (int i = 0; i < n; ++i) {
+        const int e = __ldg(entry + i);
+        add_row(acc, (e >> 5) & 7, AT(cap, e & 31));
+    }
+    const T cap_eps = add_rn(rows_sum(acc, short_rows), T(1e-6));
+    fresh(acc);
+    for (int i = 0; i < n; ++i) {
+        const int e = __ldg(entry + i), d = e & 31;
+        const T util = sub_rn(add_rn(__ldg(dist_util + i), AT(bn, d)),
+                              div_zero(mul_rn(omega, AT(cap, d)), cap_eps));
+        const T z = exp_like_xla(mul_rn(neg_temp, util));
+        AT(cbuf, i) = z;
+        add_row(acc, (e >> 5) & 7, z);
+    }
+    const T zsum = rows_sum(acc, short_rows);
+    for (int i = 0; i < n; ++i) AT(cbuf, i) = mul_rn(div_rn(AT(cbuf, i), zsum), pu);
+}
+
+// One unit, a routed node's up slot u, for 32 replicas (a replica a
+// lane), by W warps (blockDim.y, a power of two).  The warps stage the
+// down slots' capacity and density terms, and add the (node, up) sum's
+// GEMV rows among them (warp w the rows q with q % W == w), so every od
+// flow is read once a block.  Then chunk by chunk of the unit's groups in
+// ascending id, a chunk the groups whose entries fit in LANE_CHUNK: warp w
+// works the chunk's groups w, w + W, ... on its own, each group one
+// dependent chain (P(od | up), the capacity sum, z and its sum, each
+// entry's contribution: group_chain by the group's plan, or
+// group_chain_long), and writes each contribution to the chunk's
+// buffer at its entry; after a barrier the warps add the buffer into the
+// phi accumulators in ascending entry id (warp w those (down slot, GEMV
+// row) accumulators s with s % W == w), so each accumulator takes its
+// members in the order the member tables give, whatever warp worked them;
+// a barrier, and the next chunk.  The (node, up) sum's rows, each
+// replica's down slots' capacity and density terms, the phi row's
+// accumulators [M][Q] and the chunk's buffer live in shared memory,
+// LANE_TILE words apart (ops/routing.py::lane_bytes); the groups' sums in
+// registers.  A lane past the batch reads the last replica's operands and
+// writes nothing.
+template <typename T, int Q>
+__global__ void __launch_bounds__(LANE_TILE * LANE_WARPS_MAX, LANE_MIN_BLOCKS)
+turning_fractions_kernel_lanes(const RoutingArgs a) {
     constexpr unsigned ALL = 0xffffffffu;
-    const int tiles = (int)((a.B + LANE_TILE - 1) / LANE_TILE);
     const int M = (int)a.M, W = blockDim.y, w = threadIdx.y, lane = threadIdx.x;
-    const int unit = a.lane_order[blockIdx.x / tiles];
+    const int units = (int)a.NR * M;
+    const int unit = a.lane_order[blockIdx.x % units];
     const int r = unit / M, u = unit - r * M;
-    const long long b_live = (long long)(blockIdx.x % tiles) * LANE_TILE + lane;
+    const long long b_live = (long long)(blockIdx.x / units) * LANE_TILE + lane;
     const long long b = min(b_live, a.B - 1);
 
     extern __shared__ unsigned char smem_raw[];
     T* cap = reinterpret_cast<T*>(smem_raw) + lane;  // [M]
     T* bn = cap + M * LANE_TILE;                      // [M]
     T* phi = bn + M * LANE_TILE;                      // [M][Q]
-    T* zbuf = phi + M * Q * LANE_TILE + w * a.group_max * LANE_TILE;  // [W][group_max]
-#define AT(p, i) (p)[(i) * LANE_TILE]
+    T* tot_rows = phi + M * Q * LANE_TILE;            // [Q]
+    T* cbuf = tot_rows + Q * LANE_TILE;               // [LANE_CHUNK]
 
+    // this lane's od flow of pair p: od[p * od_sp], from the [P, B] copy of
+    // per-replica flows or the shared [P] column
     const T* dist_util = static_cast<const T*>(a.lane_dist_util);
-    const T* od_shared = static_cast<const T*>(a.od_flow);
-    const T* od_mine = static_cast<const T*>(a.od_by_pair);
-    const bool per_replica = od_mine != nullptr;
-    auto od_flow = [&](int p) {
-        return per_replica ? od_mine[p * a.B + b] : od_shared[p * a.od_flow_sp];
-    };
+    const bool per_replica = a.od_by_pair != nullptr;
+    const T* od = per_replica ? static_cast<const T*>(a.od_by_pair) + b
+                              : static_cast<const T*>(a.od_flow);
+    const long long od_sp = per_replica ? a.B : a.od_flow_sp;
+    auto od_flow = [&](int p) { return od[p * od_sp]; };
 
-    // each down slot's capacity and density term; the accumulators at -0.0
-    if (w == 0) {
-        for (int d = 0; d < M; ++d)
-            link_terms(a, b, __ldg(a.lane_down_link + r * M + d), AT(cap, d), AT(bn, d));
-        for (int i = 0; i < M * Q; ++i) AT(phi, i) = T(-0.0);
-    }
-    __syncthreads();
-
-    // the (node, up) sum of the groups' od flows, eight in flight
+    // each down slot's capacity and density term, where the unit has a
+    // group to read them (a unit with none writes its guard's fallback row,
+    // the same for every replica); the accumulators at -0.0
     const int* row = a.lane_unit + 3 * unit;
     const int4* groups = reinterpret_cast<const int4*>(a.lane_group);
     const int g0 = __ldg(row), g1 = __ldg(row + 3), ug = __ldg(row + 2);
+    for (int d = w; d < M && g0 < g1; d += W)
+        link_terms(a, b, __ldg(a.lane_down_link + r * M + d), AT(cap, d), AT(bn, d));
+    for (int i = w; i < M * Q; i += W) AT(phi, i) = T(-0.0);
+
+    // the (node, up) sum of the groups' od flows: this warp's GEMV rows,
+    // eight flows in flight
     T acc[Q];
     fresh(acc);
     for (int c = g0; c < g1; c += 32) {
         const int m = min(32, g1 - c);
         const int4 rec = lane < m ? __ldg(groups + c + lane) : make_int4(0, 0, 0, 0);
-        for (int j0 = 0; j0 < m; j0 += 8) {
+        const int q = (rec.y >> 8) & 7;
+        unsigned todo = __ballot_sync(ALL, lane < m && (q & (W - 1)) == w);
+        while (todo) {
             T flow[8];
             int rows[8];
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-                flow[j] = od_flow(__shfl_sync(ALL, rec.x, j0 + j));
-                rows[j] = (__shfl_sync(ALL, rec.y, j0 + j) >> 8) & 7;
+                const int s = todo ? __ffs(todo) - 1 : 0;
+                const int p = __shfl_sync(ALL, rec.x, s), qs = __shfl_sync(ALL, q, s);
+                flow[j] = todo ? od_flow(p) : T(0);
+                rows[j] = todo ? qs : -1;
+                todo &= todo - 1;
             }
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-                if (j0 + j < m) add_row(acc, rows[j], flow[j]);
+            for (int j = 0; j < 8; ++j) add_row(acc, rows[j], flow[j]);
         }
     }
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+        if ((q & (W - 1)) == w) AT(tot_rows, q) = acc[q];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = AT(tot_rows, q);
     const T tot = ug >= 0 ? rows_sum(acc, __ldg(a.lane_uo_short + ug)) : T(0);
     const T inv = div_rn(T(1), T(g1 - g0));
 
-    // this warp's groups in ascending id: P(od | up), the capacity sums,
-    // the logit's numerators and their sums, each turn's share of its phi
-    // slot; the next group's od flow is loaded a group ahead
-    unsigned mine = 0;  // the owners bits of this warp's accumulators
-    for (int bit = w; bit < 32; bit += W) mine |= 1u << bit;
+    // chunk by chunk: this warp's groups into the chunk's buffer, then the
+    // buffer into the phi accumulators in ascending id
     const T neg_temp = T(a.neg_temp), omega = T(a.omega);
-    int k0 = __ldg(row + 1);
-    for (int c = g0; c < g1; c += 32) {
+    const int k_unit = __ldg(row + 1);
+    for (int c = g0; c < g1;) {
         const int m = min(32, g1 - c);
         const int4 rec = lane < m ? __ldg(groups + c + lane) : make_int4(0, 0, 0, 0);
-        int first = rec.y & 255;  // the chunk's entries before each group, inclusive
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int v = __shfl_up_sync(ALL, first, o);
-            if (lane >= o) first += v;
-        }
-        const int chunk = __shfl_sync(ALL, first, 31);
-        first -= rec.y & 255;
-        unsigned todo = __ballot_sync(ALL, (unsigned)rec.z & mine);
-        int j = todo ? __ffs(todo) - 1 : 0;
-        T w_od = od_flow(__shfl_sync(ALL, rec.x, j));
-        while (todo) {
-            todo &= todo - 1;
-            const int jn = todo ? __ffs(todo) - 1 : j;
-            const T w_next = od_flow(__shfl_sync(ALL, rec.x, jn));
-            const int code = __shfl_sync(ALL, rec.y, j);
-            const int k = k0 + __shfl_sync(ALL, first, j);
-            const int n = code & 255, short_rows = code >> 11;
-            const T pu = tot > T(0) ? div_rn(w_od, tot) : inv;
-            fresh(acc);
-            for (int i = 0; i < n; ++i) {
-                const int e = __ldg(a.lane_entry + k + i);
-                add_row(acc, (e >> 5) & 7, AT(cap, e & 31));
+        // each group's first entry in the chunk; the chunk, the groups
+        // that end within LANE_CHUNK entries of its first
+        const int first = __shfl_sync(ALL, rec.z, 0);
+        const int at = rec.z - first, end = at + (rec.y & 255);
+        const int mc = __popc(__ballot_sync(ALL, lane < m && end <= LANE_CHUNK));
+        const int chunk = __shfl_sync(ALL, end, mc - 1);
+        const int k0 = k_unit + first;
+        const int code = lane < chunk ? __ldg(a.lane_entry + k0 + lane) : 0;
+
+        // the groups w, w + W, ... of the chunk, each group's od flow loaded
+        // a group ahead
+        int j = w;
+        const int p0 = __shfl_sync(ALL, rec.x, j);
+        T w_od = j < mc ? od_flow(p0) : T(0);
+        for (; j < mc; j += W) {
+            const int pn = __shfl_sync(ALL, rec.x, min(j + W, 31));
+            const T w_next = j + W < mc ? od_flow(pn) : T(0);
+            const int gcode = __shfl_sync(ALL, rec.y, j), g_at = __shfl_sync(ALL, at, j);
+            const unsigned codes = (unsigned)__shfl_sync(ALL, rec.w, j);
+            const int n = gcode & 255;
+            const T pu = tot > T(0) ? div_zero(w_od, tot) : inv;
+            T* cb = cbuf + g_at * LANE_TILE;
+            const T* du = dist_util + k0 + g_at;
+            switch (n) {
+                case 1:
+                    group_chain<T, Q, 1>(cap, bn, du, codes, gcode, pu, neg_temp, omega, cb);
+                    break;
+                case 2:
+                    group_chain<T, Q, 2>(cap, bn, du, codes, gcode, pu, neg_temp, omega, cb);
+                    break;
+                case 3:
+                    group_chain<T, Q, 3>(cap, bn, du, codes, gcode, pu, neg_temp, omega, cb);
+                    break;
+                case 4:
+                    group_chain<T, Q, 4>(cap, bn, du, codes, gcode, pu, neg_temp, omega, cb);
+                    break;
+                default:
+                    group_chain_long<T, Q>(cap, bn, du, a.lane_entry + k0 + g_at, n,
+                                           (gcode >> 11) & 31, pu, neg_temp, omega, cb);
             }
-            const T cap_eps = add_rn(rows_sum(acc, short_rows), T(1e-6));
-            fresh(acc);
-            for (int i = 0; i < n; ++i) {
-                const int e = __ldg(a.lane_entry + k + i), d = e & 31;
-                const T util = sub_rn(add_rn(__ldg(dist_util + k + i), AT(bn, d)),
-                                      div_rn(mul_rn(omega, AT(cap, d)), cap_eps));
-                const T z = exp_like_xla(mul_rn(neg_temp, util));
-                AT(zbuf, i) = z;
-                add_row(acc, (e >> 5) & 7, z);
-            }
-            const T zsum = rows_sum(acc, short_rows);
-            for (int i = 0; i < n; ++i) {
-                const int e = __ldg(a.lane_entry + k + i);
-                const int slot = (e & 31) * Q + ((e >> 5) & 7);
-                if ((slot & (W - 1)) == w) {
-                    T* x = &AT(phi, slot);
-                    *x = add_rn(*x, mul_rn(div_rn(AT(zbuf, i), zsum), pu));
-                }
-            }
-            j = jn;
             w_od = w_next;
         }
-        k0 += chunk;
+        __syncthreads();
+
+        // the chunk's contributions in ascending id, each into its (down
+        // slot, GEMV row) accumulator: this warp's accumulators
+        const int slot = (code & 31) * Q + ((code >> 5) & 7);
+        unsigned todo = __ballot_sync(ALL, lane < chunk && (slot & (W - 1)) == w);
+        while (todo) {
+            const int e = __ffs(todo) - 1;
+            todo &= todo - 1;
+            T* x = &AT(phi, __shfl_sync(ALL, slot, e));
+            *x = add_rn(*x, AT(cbuf, e));
+        }
+        __syncthreads();
+        c += mc;
     }
-    __syncthreads();
 
     // the unit's phi row, then its guard (check_fractions)
     if (w != 0 || b_live >= a.B) return;
@@ -493,7 +627,20 @@ __global__ void __launch_bounds__(1024) turning_fractions_kernel_lanes(const Rou
     guard_row(phi, Q * LANE_TILE, M,
               static_cast<const T*>(a.offdiag_uniform) + (long long)r * MM + u * M,
               static_cast<T*>(a.out) + (b * a.NR + r) * MM + u * M);
-#undef AT
+}
+
+// The streamed kernel's attributes set as its launches need them: the most
+// shared memory an SM can give (its blocks are few warps each, and an SM
+// should hold as many as its registers allow), and `smem` bytes a block.
+template <typename T, int Q>
+cudaError_t prepare_lanes(size_t smem) {
+    cudaError_t err = cudaFuncSetAttribute(turning_fractions_kernel_lanes<T, Q>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && smem > 48 * 1024)
+        err = cudaFuncSetAttribute(turning_fractions_kernel_lanes<T, Q>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    return err;
 }
 
 template <typename T, int Q>
@@ -502,21 +649,33 @@ int launch_lanes(const RoutingArgs* args, cudaStream_t stream) {
         const dim3 grid((unsigned)((args->B + 31) / 32), (unsigned)((args->P + 31) / 32));
         turning_fractions_kernel_od_by_pair<T><<<grid, dim3(32, 8), 0, stream>>>(*args);
     }
-    // the most shared memory an SM can give: its blocks are few warps each,
-    // and an SM should hold as many as its registers allow
     const size_t smem = (size_t)args->shared_bytes;
-    cudaError_t err = cudaFuncSetAttribute(turning_fractions_kernel_lanes<T, Q>,
-                                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                                           cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess && smem > 48 * 1024)
-        err = cudaFuncSetAttribute(turning_fractions_kernel_lanes<T, Q>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = prepare_lanes<T, Q>(smem);
     if (err != cudaSuccess) return (int)err;
     const long long tiles = (args->B + LANE_TILE - 1) / LANE_TILE;
     turning_fractions_kernel_lanes<T, Q><<<(unsigned)(args->NR * args->M * tiles),
                                            dim3(LANE_TILE, (unsigned)args->lanes), smem,
                                            stream>>>(*args);
     return (int)cudaGetLastError();
+}
+
+// The streamed kernel's registers a thread, its local (spilled) bytes a
+// thread and the blocks of args->lanes warps and args->shared_bytes an SM
+// holds, into out[0..2].
+template <typename T, int Q>
+int occupancy_lanes(const RoutingArgs* args, int* out) {
+    cudaFuncAttributes attr = {};
+    cudaError_t err = cudaFuncGetAttributes(&attr, turning_fractions_kernel_lanes<T, Q>);
+    if (err == cudaSuccess) err = prepare_lanes<T, Q>((size_t)args->shared_bytes);
+    int blocks = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, turning_fractions_kernel_lanes<T, Q>, LANE_TILE * (int)args->lanes,
+            (size_t)args->shared_bytes);
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    out[2] = blocks;
+    return (int)err;
 }
 
 template <typename T>
@@ -542,6 +701,16 @@ int launch(const RoutingArgs* args, void* stream) {
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+int occupancy(const RoutingArgs* args, void* out) {
+    switch (args->Q) {
+        case 5: return occupancy_lanes<T, 5>(args, static_cast<int*>(out));
+        case 3: return occupancy_lanes<T, 3>(args, static_cast<int*>(out));
+        case 1: return occupancy_lanes<T, 1>(args, static_cast<int*>(out));
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // The whole batch on `stream` (a cudaStream_t), by the design args->lanes
@@ -558,4 +727,16 @@ extern "C" int routing_turning_fractions(const void* args, void* stream) {
 
 extern "C" int routing_turning_fractions_f64(const void* args, void* stream) {
     return launch<double>(static_cast<const RoutingArgs*>(args), stream);
+}
+
+// The streamed kernel for the tables `args` describes (Q, the flow type of
+// the entry point), at its args->lanes warps and args->shared_bytes a
+// block: registers a thread, local bytes a thread and resident blocks an
+// SM, into the three ints at `out`.  Launches nothing; `stream` is unused.
+extern "C" int routing_lanes_occupancy(const void* args, void* out, void* stream) {
+    return occupancy<float>(static_cast<const RoutingArgs*>(args), out);
+}
+
+extern "C" int routing_lanes_occupancy_f64(const void* args, void* out, void* stream) {
+    return occupancy<double>(static_cast<const RoutingArgs*>(args), out);
 }

@@ -56,8 +56,10 @@ _NCURVE = [_P] * 4 + [_LL, _P, _LL, _P, _LL, _P] + [_I] * 4 + [_P, _F, _I]
 # before the stream, which every one takes last
 ENTRIES = {
     "ncurve.cu": {"ncurve_history_reads": _NCURVE, "ncurve_history_reads_f64": _NCURVE},
-    # the argument block
-    "routing.cu": {"routing_turning_fractions": [_P], "routing_turning_fractions_f64": [_P]},
+    # the argument block; the streamed kernel's occupancy: the argument
+    # block, three ints out (it launches nothing)
+    "routing.cu": {"routing_turning_fractions": [_P], "routing_turning_fractions_f64": [_P],
+                   "routing_lanes_occupancy": [_P, _P], "routing_lanes_occupancy_f64": [_P, _P]},
     # nf, p, its period, u, z, out, n
     "binom.cu": {"binom_fast": [_P, _P, _LL, _P, _P, _P, _LL]},
     # the argument block

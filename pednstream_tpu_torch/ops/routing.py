@@ -21,9 +21,11 @@ order changes from run to run.
 
 Two designs of the kernel compute it, and the batch alone picks one: from
 ``LANE_TILE`` replicas (a warp) on the streamed design, a block per (routed
-node's up slot, 32 replicas) and a replica a lane, after a copy of
-per-replica od flows to a ``[P, B]`` buffer; below it the walk, a block per
-(routed node, replica).  Each has a float32 and a float64 instantiation,
+node's up slot, 32 replicas) and a replica a lane, its warps sharing the
+unit's softmax groups out chunk by chunk (:func:`lane_warps` sets how many
+from the batch and the tables), after a copy of per-replica od flows to a
+``[P, B]`` buffer; below it the walk, a block per (routed node, replica).
+Each has a float32 and a float64 instantiation,
 picked by the tables' flow dtype.  The kernels read the scenario's
 :class:`RoutingKernelTables`, built with it: each routed node's ranges of
 the routing tables for the walk, and the codes by which the streamed
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from ..routing import RoutingTables, _gemv_rows
-from ._build import launch
+from ._build import launch, library
 
 _ENTRY = {torch.float32: "routing_turning_fractions",
           torch.float64: "routing_turning_fractions_f64"}
@@ -48,8 +50,14 @@ MAX_SHARED_BYTES = 232448
 # the streamed design's replicas a block, a replica a lane; it runs from
 # this many replicas on, where every lane of the first warp holds one
 LANE_TILE = 32
-# warps of the streamed kernel an SM holds (at its 58-64 registers a thread)
-WARPS_PER_SM = 32
+# the most entries a chunk of a unit's groups holds (one entry code a lane)
+LANE_CHUNK = 32
+# the streamed design's warps a block: at most its kernel's launch bounds
+# allow, and at least enough that an SM's 32 blocks hold more warps than
+# one-warp blocks would, where a unit has the groups to share out
+LANE_WARPS_MAX, LANE_WARPS_MIN = 8, 2
+# warps of the streamed kernel an SM holds (at its 48 registers a thread)
+WARPS_PER_SM = 40
 
 
 # --------------------------------------------------------------------------
@@ -218,6 +226,44 @@ def _short_rows(members: np.ndarray) -> np.ndarray:
     return (short << np.arange(members.shape[1])).sum(-1).astype(np.int32)
 
 
+def _sum_plan(rows, short: int, Q: int):
+    """How a segment of at most four members, member i in GEMV row
+    ``rows[i]`` (ascending id), sums to the bits of its Q row accumulators
+    combined in XLA's order with +0.0 on its short rows (the kernel's
+    ``rows_sum``): a tree over the members alone, as ``a``, ``a + b``,
+    ``(a + b) + c``, ``((a + b) + c) + d`` or (``balanced``) ``(a + b) +
+    (c + d)``, each addition commutative, then ``+0.0`` where a row is
+    short (``zfix``), else ``-0.0``.  An empty row adds -0.0 to what it
+    meets, which changes nothing; a +0.0 anywhere changes only a -0.0 sum,
+    into +0.0, which the final ``+0.0`` does.  Returns the members in the
+    order the tree takes them, ``balanced`` and ``zfix``."""
+    rows_of = [None] * Q
+    for i, q in enumerate(rows):
+        rows_of[q] = i if rows_of[q] is None else (rows_of[q], i)
+
+    def add(x, y):
+        return y if x is None else x if y is None else (x, y)
+
+    def leaves(t):
+        return [t] if isinstance(t, int) else leaves(t[0]) + leaves(t[1])
+
+    def chain(t):  # up to three leaves as (a + b) + c
+        if isinstance(t, int) or len(leaves(t)) == 2:
+            return leaves(t)
+        pair, one = (t[1], t[0]) if isinstance(t[0], int) else t
+        return leaves(pair) + [one]
+
+    r = rows_of
+    tree = (add(add(add(r[0], r[2]), add(r[1], r[3])), r[4]) if Q == 5
+            else add(add(r[0], r[1]), r[2]) if Q == 3 else r[0])
+    if len(rows) < 4:
+        return chain(tree), False, short != 0
+    if len(leaves(tree[0])) == 2:
+        return leaves(tree[0]) + leaves(tree[1]), True, short != 0
+    three, one = tree if len(leaves(tree[0])) == 3 else tree[::-1]
+    return chain(three) + [one], False, short != 0
+
+
 def _lane_tables(te_phi_c, te_group, te_uo_idx, te_down_link, uo_od, uo_group, node_offsets,
                  members, M, lanes) -> dict:
     """The codes by which ``csrc/routing.cu``'s streamed kernel adds the
@@ -234,11 +280,14 @@ def _lane_tables(te_phi_c, te_group, te_uo_idx, te_down_link, uo_od, uo_group, n
     so ``te_group == te_uo_idx`` (checked).  Per entry: its down slot and
     GEMV row, in bits 0-4 and 5-7.  Per group: its od pair; its entries,
     its uo entry's GEMV row and its short rows (``_short_rows``) in bits
-    0-7, 8-10 and 11-15; the phi accumulators its entries add into, bit
-    ``(down slot * Q + row) % 32`` each (a warp of the kernel works the
-    groups of the accumulators it owns); 0.  Per unit: its first group and
-    first entry, and its (node, up) group (-1 where the slot has no
-    entry)."""
+    0-7, 8-10 and 11-15, and where it has at most four entries the plan of
+    its sums (:func:`_sum_plan`: ``balanced`` and ``zfix``) in bits 16 and
+    17; its first entry, counted from its unit's first; where it has at
+    most four entries, a byte each from bit 0 in the order its sums take
+    them, each entry's down slot and its place in the group in bits 0-4
+    and 5-6 (else 0: the kernel reads the entries' codes from their table
+    and keeps accumulators).  Per unit: its first group and first entry,
+    and its (node, up) group (-1 where the slot has no entry)."""
     K, G = len(te_group), len(uo_od)
     NR, MM = len(node_offsets) - 1, M * M
     if not np.array_equal(te_group, te_uo_idx):
@@ -265,21 +314,31 @@ def _lane_tables(te_phi_c, te_group, te_uo_idx, te_down_link, uo_od, uo_group, n
     down[node, slot % M] = te_down_link
     if np.any(down[node, slot % M] != te_down_link):
         raise AssertionError("a down slot of a routed node names two links")
-    code = count | _gemv_rows(G, lanes) << 8 | _short_rows(members[0]).astype(np.int64) << 11
-    entry_rows = _gemv_rows(K, lanes)
-    owners = np.zeros(G, dtype=np.int64)
-    np.bitwise_or.at(owners, te_group, 1 << ((slot % M) * (lanes + 1) + entry_rows) % 32)
+    short = _short_rows(members[0]).astype(np.int64)[groups]
+    code = (count | _gemv_rows(G, lanes) << 8)[groups] | short << 11
+    entry_d, entry_row = (slot % M)[by_unit], _gemv_rows(K, lanes)[by_unit]
+    n = count[groups]
+    start = np.cumsum(n) - n
+    packed = np.zeros(G, dtype=np.int64)
+    plans = {}
+    for i in np.flatnonzero(n <= 4):
+        s = start[i]
+        key = (tuple(entry_row[s:s + n[i]].tolist()), int(short[i]))
+        if key not in plans:
+            plans[key] = _sum_plan(*key, lanes + 1)
+        order, balanced, zfix = plans[key]
+        packed[i] = sum((int(entry_d[s + j]) | j << 5) << 8 * k for k, j in enumerate(order))
+        code[i] |= balanced << 16 | zfix << 17
     return dict(
-        lane_entry=((slot % M) | entry_rows << 5)[by_unit].astype(np.int32),
-        lane_group=np.stack([uo_od[groups], code[groups],
-                             owners[groups].astype(np.uint32).view(np.int32),
-                             np.zeros(G, dtype=np.int32)], 1).astype(np.int32),
+        lane_entry=(entry_d | entry_row << 5).astype(np.int32),
+        lane_group=np.stack([uo_od[groups], code, start - first_k[group_unit[groups]],
+                             packed.astype(np.uint32).view(np.int32)], 1).astype(np.int32),
         lane_unit=np.stack([first_g, first_k, np.r_[ug, -1]], 1).astype(np.int32),
         lane_order=np.argsort(-np.diff(first_k), kind="stable").astype(np.int32),
         lane_down_link=down.astype(np.int32),
         lane_uo_short=_short_rows(members[1]), lane_phi_short=_short_rows(members[2]),
         by_unit=by_unit, group_max=int(count.max(initial=0)),
-        unit_max=int(np.diff(first_k).max(initial=0)))
+        unit_groups=int(np.diff(first_g).max(initial=0)))
 
 
 class KernelArgs(ctypes.Structure):
@@ -307,8 +366,7 @@ class KernelArgs(ctypes.Structure):
                     ("lanes", "i"), ("lane_entry", "p"), ("lane_group", "p"),
                     ("lane_unit", "p"), ("lane_order", "p"), ("lane_down_link", "p"),
                     ("lane_uo_short", "p"), ("lane_phi_short", "p"),
-                    ("lane_dist_util", "p"), ("group_max", "i"), ("P", "i"),
-                    ("od_by_pair", "p"))]
+                    ("lane_dist_util", "p"), ("P", "i"), ("od_by_pair", "p"))]
 
 
 # the routing tables the kernels read, and the kernel tables
@@ -332,14 +390,15 @@ class RoutingKernelTables:
     - the streamed design's codes (:func:`_lane_tables`), int32, entries
       and groups listed by unit, a routed node's up slot: ``lane_entry
       [K]`` (down slot, GEMV row), ``lane_group [G, 4]`` (od pair; entries,
-      uo row, short rows; owners; 0), ``lane_unit [NR*M + 1, 3]`` (first
+      uo row, short rows; first entry in the unit; entry codes of a group
+      of at most four), ``lane_unit [NR*M + 1, 3]`` (first
       group, first entry, (node, up) group), ``lane_order [NR*M]`` (units,
       most entries first), ``lane_down_link [NR, M]`` (down link of each
       down slot, -1 none), ``lane_uo_short [UG]`` and ``lane_phi_short
       [NR*M*M]`` (rows short of the table's width, a bit a row);
       ``lane_dist_util [K]``, ``dist_util`` by unit in the flow dtype;
-      ``group_max`` and ``unit_max``, the most entries a softmax group and
-      a unit hold;
+      ``group_max``, the most entries a softmax group holds, and
+      ``unit_groups``, the most groups a unit holds;
     - ``args``, the kernels' argument block with every field that follows
       from the tables filled in, and ``rows_shared_bytes``, the shared
       memory of a block of the walk.
@@ -380,7 +439,10 @@ class RoutingKernelTables:
         self.dtype, self.device = f, dev
         self.node_offsets = torch.as_tensor(node_offsets, device=dev)
         self.node_max = tuple(int(x) for x in np.diff(node_offsets, axis=0).max(axis=0))
-        self.group_max, self.unit_max = lane.pop("group_max"), lane.pop("unit_max")
+        self.group_max, self.unit_groups = lane.pop("group_max"), lane.pop("unit_groups")
+        if self.group_max > LANE_CHUNK:
+            raise AssertionError(f"a softmax group of {self.group_max} entries: a chunk of the "
+                                 f"streamed design holds {LANE_CHUNK}")
         lane["lane_dist_util"] = host(rt.dist_util)[lane.pop("by_unit")]
         for name, x in lane.items():
             setattr(self, name, torch.as_tensor(x, device=dev))
@@ -399,7 +461,7 @@ class RoutingKernelTables:
                 if x.dtype != want:
                     raise TypeError(f"routing table {name} is {x.dtype}, expected {want}")
                 setattr(a, name, x.data_ptr())
-        a.NR, a.M, a.Q, a.threads, a.group_max = NR, M, Q, THREADS, self.group_max
+        a.NR, a.M, a.Q, a.threads = NR, M, Q, THREADS
         a.Lg, a.Lu, a.Lp = (x.shape[2] for x in (rt.group_members, rt.uo_group_members,
                                                   rt.phi_c_members))
         a.max_entries, a.max_groups, a.max_uo_entries, a.max_uo_groups = self.node_max
@@ -425,22 +487,24 @@ def shared_bytes(tabs: RoutingKernelTables) -> int:
     return words * tabs.lane_dist_util.element_size()
 
 
-def lane_bytes(tabs: RoutingKernelTables, warps: int = 1) -> int:
-    """Shared memory of a block of the streamed design with ``warps`` warps:
+def lane_bytes(tabs: RoutingKernelTables) -> int:
+    """Shared memory of a block of the streamed design, whatever its warps:
     per replica its down slots' capacity and density terms, its phi row's
-    accumulators ``[M, Q]`` and each warp's z of a softmax group."""
-    words = tabs.max_deg * (2 + tabs.rows) + warps * tabs.group_max
+    accumulators ``[M, Q]``, the (node, up) sum's Q rows and a chunk's
+    ``LANE_CHUNK`` contributions."""
+    words = tabs.max_deg * (2 + tabs.rows) + tabs.rows + LANE_CHUNK
     return LANE_TILE * words * tabs.lane_dist_util.element_size()
 
 
 def lane_warps(tabs: RoutingKernelTables, batch: int, device) -> int:
     """Warps a unit (a routed node's up slot) of the streamed design gets
-    for 32 replicas: 1 where the units and replica tiles alone give the
-    card its warps, else the power of two that does, up to the unit's phi
-    accumulators (a warp owns some), the heaviest unit's entries and 32."""
+    for 32 replicas, a power of two: ``LANE_WARPS_MIN``, or more where the
+    units and replica tiles alone leave the card short of ``WARPS_PER_SM``
+    warps an SM; at most ``LANE_WARPS_MAX`` and the most groups a unit
+    holds (the warps share its groups out)."""
     units = tabs.num_routed * tabs.max_deg * -(-batch // LANE_TILE)
-    want = _sm_count(device) * WARPS_PER_SM / units
-    most = min(32, tabs.max_deg * tabs.rows, tabs.unit_max)
+    want = max(LANE_WARPS_MIN, _sm_count(device) * WARPS_PER_SM / units)
+    most = min(LANE_WARPS_MAX, tabs.unit_groups)
     warps = 1
     while warps < want and 2 * warps <= most:
         warps *= 2
@@ -452,6 +516,36 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _geometry(tabs: RoutingKernelTables, B: int, device):
+    """The design a batch of ``B`` takes and its block: ``(warps, shared
+    bytes)``, warps 0 for the walk.  The streamed design from a warp of
+    replicas on (where its block fits), else the walk."""
+    warps = lane_warps(tabs, B, device) if B >= LANE_TILE else 0
+    if warps and lane_bytes(tabs) <= MAX_SHARED_BYTES:
+        return warps, lane_bytes(tabs)
+    return 0, tabs.rows_shared_bytes
+
+
+def lane_occupancy(tabs: RoutingKernelTables, batch: int, device) -> dict:
+    """The streamed kernel at the block ``batch`` replicas give it on the
+    CUDA ``device`` (``lane_warps``, ``lane_bytes``): its registers a
+    thread, its local (spilled) bytes a thread, the blocks and warps an SM
+    holds, as the CUDA runtime reports them for the built kernel."""
+    warps, smem = _geometry(tabs, batch, device)
+    if not warps:
+        raise ValueError(f"B={batch} takes the walk, not the streamed design")
+    args = KernelArgs.from_buffer_copy(tabs.args)
+    args.lanes, args.shared_bytes = warps, smem
+    out = (ctypes.c_int * 3)()
+    entry = _ENTRY[tabs.dtype].replace("turning_fractions", "lanes_occupancy")
+    with torch.cuda.device(device):
+        err = getattr(library(), entry)(ctypes.addressof(args), ctypes.addressof(out), None)
+    if err:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return {"warps": warps, "shared_bytes": smem, "registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2], "warps_per_sm": out[2] * warps}
+
+
 def _launch(tabs: RoutingKernelTables, density, recv_prev, cap_default, od_flow_t):
     dev, f = density.device, tabs.dtype
     if tabs.device != dev:
@@ -460,13 +554,8 @@ def _launch(tabs: RoutingKernelTables, density, recv_prev, cap_default, od_flow_
         raise ValueError(f"density_for_routing has shape {tuple(density.shape)}, "
                          f"expected [B, E]")
     B, E = density.shape
-    # the design, by the batch: the streamed one from a warp of replicas on
-    # (where its block fits), else the walk
-    warps = lane_warps(tabs, B, dev) if B >= LANE_TILE else 0
-    smem = lane_bytes(tabs, warps)
-    lanes = warps > 0 and smem <= MAX_SHARED_BYTES
-    if not lanes:
-        smem = tabs.rows_shared_bytes
+    warps, smem = _geometry(tabs, B, dev)
+    lanes = warps > 0
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"a routed node needs {smem} B of shared memory, more than a "
                          f"block may take ({MAX_SHARED_BYTES})")
@@ -500,16 +589,17 @@ def _launch(tabs: RoutingKernelTables, density, recv_prev, cap_default, od_flow_
     args.od_flow, args.P = od_flow_t.data_ptr(), od_flow_t.shape[-1]
     args.od_flow_sb, args.od_flow_sp = ((0, od_flow_t.stride(0)) if od_flow_t.dim() == 1
                                         else od_flow_t.stride())
-    args.out, args.B, args.shared_bytes = out.data_ptr(), B, smem
-    args.lanes = warps if lanes else 0
+    args.out, args.B, args.shared_bytes, args.lanes = out.data_ptr(), B, smem, warps
     # the streamed design reads per-replica od flows from a [P, B] copy
     od_by_pair = (torch.empty((args.P, B), dtype=f, device=dev)
                   if lanes and od_flow_t.dim() == 2 else None)
     if od_by_pair is not None:
         args.od_by_pair = od_by_pair.data_ptr()
-    launch("turning_fractions", _ENTRY[f], dev, ctypes.addressof(args),
-           counts=[(turning_fractions.launches, str(f).removeprefix("torch.")),
-                   (turning_fractions.launches_by_design, "lanes" if lanes else "rows")])
+    counts = [(turning_fractions.launches, str(f).removeprefix("torch.")),
+              (turning_fractions.launches_by_design, "lanes" if lanes else "rows")]
+    if lanes:
+        counts.append((turning_fractions.launches_by_warps, warps))
+    launch("turning_fractions", _ENTRY[f], dev, ctypes.addressof(args), counts=counts)
     return out
 
 
@@ -538,9 +628,11 @@ def turning_fractions(
     ``LANE_TILE`` replicas on it runs the streamed design with
     ``lane_warps`` warps a unit, below it the walk (also where a block of
     the streamed design would not fit).  A call is counted once in
-    ``turning_fractions.launches`` under the dtype's name and once in
+    ``turning_fractions.launches`` under the dtype's name, once in
     ``turning_fractions.launches_by_design`` under the design's,
-    ``"lanes"`` or ``"rows"``; a failed launch raises.  ``density_for_
+    ``"lanes"`` or ``"rows"``, and a streamed call once in
+    ``turning_fractions.launches_by_warps`` under its warps a block; a
+    failed launch raises.  ``density_for_
     routing``, ``recv_prev`` and ``cap_default`` may have any strides on
     the card.  On CPU tensors it runs :func:`turning_fractions_step_plain`.
     Both give the same bits.  Any other device raises.
@@ -555,7 +647,8 @@ def turning_fractions(
     raise ValueError(f"turning_fractions has no kernel for device {dev!r}")
 
 
-# calls per flow dtype, and per design: the streamed one ("lanes") or the
-# walk ("rows")
+# calls per flow dtype, per design: the streamed one ("lanes") or the walk
+# ("rows"), and the streamed calls per warps a block
 turning_fractions.launches = {"float32": 0, "float64": 0}
 turning_fractions.launches_by_design = {"lanes": 0, "rows": 0}
+turning_fractions.launches_by_warps = {1: 0, 2: 0, 4: 0, 8: 0}

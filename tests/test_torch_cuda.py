@@ -35,9 +35,10 @@ from pednstream_tpu_torch.ops import (PER_REPLICA_T, binom_fast, binom_fast_plai
                                       fused_history_reads, fused_history_reads_plain,
                                       node_solve, node_solve_plain, turning_fractions,
                                       turning_fractions_step_plain)
-from pednstream_tpu_torch.ops.routing import LANE_TILE
+from pednstream_tpu_torch.ops.routing import LANE_TILE, lane_warps
 from pednstream_tpu_torch.profiling import plain_hot_ops
 from pednstream_tpu_torch.randomize import randomize_engine_params_batched
+from routing_fan import fan_scenario
 
 pytestmark = pytest.mark.slow
 
@@ -644,8 +645,9 @@ def test_binom_kernel_rejects_another_broadcast(cuda):
 def routing_scenarios(device):
     """Every form of the routing tables a path builds: the env's
     OD-candidate tables (float32 GEMV lanes), melbourne's (the main path,
-    4 entries), delft's in float32, float64 and exact parity, and a routed
-    golden scenario in exact parity (float64, one row per segment)."""
+    4 entries), delft's in float32, float64 and exact parity, a routed
+    golden scenario in exact parity (float64, one row per segment), and the
+    fan of ``routing_fan`` (softmax groups of six entries)."""
     from pednstream_tpu_torch.golden import fixture_args
 
     gen = NetworkEnvGenerator()
@@ -658,6 +660,7 @@ def routing_scenarios(device):
     args, _, _ = fixture_args(Path(__file__).parent / "golden" / "grid10.npz")
     out["grid10_exact"] = (build_scenario(**args, ftype=torch.float64, exact_parity=True,
                                           device=device), 1)
+    out["fan"] = (fan_scenario(device), 64)
     return out
 
 
@@ -684,25 +687,35 @@ def routed_scenarios():
 
 
 @pytest.mark.parametrize("name", ["env", "melbourne", "delft_f32", "delft_f64", "delft_exact",
-                                  "grid10_exact"])
+                                  "grid10_exact", "fan"])
 @pytest.mark.parametrize("per_replica_od", [False, True])
-@pytest.mark.parametrize("batch", ["path", 1, LANE_TILE - 1, LANE_TILE, 77])
+@pytest.mark.parametrize("batch", ["path", 1, LANE_TILE - 1, LANE_TILE, 77, 4127])
 def test_routing_kernel_equals_plain_bitwise(cuda, routed_scenarios, name, per_replica_od,
                                              batch):
-    """At the path's own batch and at batches that take each design: one
-    replica, one short of a warp (the walk), a warp and a ragged 77 (the
-    streamed design); each call counted once, under its design."""
+    """At the path's own batch and at batches that take each design and
+    geometry: one replica, one short of a warp (the walk), a warp and a
+    ragged 77 (the streamed design: eight warps a block on the env, at
+    least two where a unit has the groups), 4127 (two warps a block, a
+    ragged last tile); each call counted once, under its design and,
+    streamed, under its warps a block (one where a unit has one group, as
+    melbourne's)."""
     scn, B = routed_scenarios[name]
     B = B if batch == "path" else batch
     ops_ = routing_operands(scn, B, 5, per_replica_od, cuda)
     key = str(scn.routing.dist_util.dtype).removeprefix("torch.")
     design = "lanes" if B >= LANE_TILE else "rows"
-    before = (turning_fractions.launches[key], dict(turning_fractions.launches_by_design))
+    warps = lane_warps(scn.routing_kernel_tables, B, cuda) if design == "lanes" else None
+    if design == "lanes" and name != "grid10_exact":
+        assert warps == 1 if name == "melbourne" else warps == 2 if B == 4127 else warps >= 2
+    before = (turning_fractions.launches[key], dict(turning_fractions.launches_by_design),
+              dict(turning_fractions.launches_by_warps))
     got = turning_fractions(scn, *ops_)
     want = turning_fractions_step_plain(scn, *ops_)
     torch.cuda.synchronize()
     assert turning_fractions.launches[key] == before[0] + 1
     assert turning_fractions.launches_by_design == {**before[1], design: before[1][design] + 1}
+    assert turning_fractions.launches_by_warps == (
+        before[2] if warps is None else {**before[2], warps: before[2][warps] + 1})
     assert_bits_equal(got, want)
 
 

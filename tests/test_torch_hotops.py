@@ -59,10 +59,11 @@ from pednstream_tpu.scenario import build_scenario as jax_build
 from pednstream_tpu_torch import engine, generator, ops
 from pednstream_tpu_torch.golden import fixture_args
 from pednstream_tpu_torch.ops.binom import binom_fast_plain
-from pednstream_tpu_torch.ops.routing import (NODE_TABLES, exp_like_xla, turning_fractions,
-                                              turning_fractions_dense,
+from pednstream_tpu_torch.ops.routing import (LANE_CHUNK, NODE_TABLES, exp_like_xla,
+                                              turning_fractions, turning_fractions_dense,
                                               turning_fractions_step_plain)
 from pednstream_tpu_torch.scenario import build_scenario
+from routing_fan import fan_scenario
 
 NetworkEnvGenerator = partial(generator.NetworkEnvGenerator, device="cpu")
 torch_build = partial(build_scenario, device="cpu")
@@ -271,11 +272,12 @@ def kernel_stream(scn, density, recv_prev, cap_default, od_flow_t):
             tot = rows_sum(acc, tabs.lane_uo_short[ug].item()) if ug >= 0 else None
             inv = torch.tensor(1.0, dtype=f) / (g1 - g0)
             phi = fresh(M * Q)
-            for p, code, owners, _ in group[g0:g1]:
-                n, short = code & 255, code >> 11
+            k_unit = k
+            for p, code, first, packed in group[g0:g1]:
+                n, short = code & 255, code >> 11 & 31
                 codes = [(e & 31, e >> 5 & 7) for e in entry[k:k + n]]
-                # the warps that own an accumulator of the group work it
-                assert owners & 0xFFFFFFFF == sum({1 << (d * Q + q) % 32 for d, q in codes})
+                check_plan(codes, code, packed, Q)
+                assert first == k - k_unit
                 pu = torch.where(tot > 0, od[:, p] / torch.where(tot > 0, tot, 1.0), inv)
                 acc = fresh(Q)
                 for d, lane in codes:
@@ -302,7 +304,175 @@ def kernel_stream(scn, density, recv_prev, cap_default, od_flow_t):
     return out
 
 
-KERNEL_MODELS = {"walk": kernel_walk, "stream": kernel_stream}
+def plan_of(code, packed):
+    """A group's sum plan from its record: its entries as (down slot,
+    place in the group) in the order its sums take them, ``balanced``, and
+    the zero its sums end with."""
+    n = code & 255
+    order = [(packed >> 8 * i & 31, packed >> 8 * i + 5 & 3) for i in range(n)]
+    return order, bool(code >> 16 & 1), 0.0 if code >> 17 & 1 else -0.0
+
+
+def plan_sum(vals, balanced, zero):
+    """``csrc/routing.cu``'s ``plan_sum``: the values in their plan's order."""
+    s = vals[0]
+    if len(vals) == 2:
+        s = vals[0] + vals[1]
+    elif len(vals) == 3:
+        s = (vals[0] + vals[1]) + vals[2]
+    elif len(vals) == 4:
+        s = (((vals[0] + vals[1]) + (vals[2] + vals[3])) if balanced
+             else ((vals[0] + vals[1]) + vals[2]) + vals[3])
+    return s + zero
+
+
+_PLANS_CHECKED = set()
+
+
+def check_plan(codes, code, packed, Q):
+    """A group of at most four entries carries each entry's down slot and
+    place, a permutation of its entries; the plan's bits are 0 on a longer
+    group; a plan takes every member once, and on random values (signed
+    zeros among them) sums to what the Q row accumulators give."""
+    n = code & 255
+    if n > 4:
+        assert packed == 0 and code >> 16 == 0
+        return
+    order, balanced, zero = plan_of(code, packed)
+    assert sorted(at for _, at in order) == list(range(n))
+    assert all(codes[at][0] == d for d, at in order)
+    key = (tuple(q for _, q in codes), code, tuple(at for _, at in order), Q)
+    if key in _PLANS_CHECKED:
+        return
+    _PLANS_CHECKED.add(key)
+    rng = np.random.default_rng(n)
+    for vals in (rng.normal(size=(64, n)), np.where(rng.uniform(size=(64, n)) < 0.5, -0.0, 0.0),
+                 np.full((64, n), -0.0)):
+        vals = torch.from_numpy(vals).float()
+        acc = [torch.full((64,), -0.0) for _ in range(Q)]
+        for i, (_, q) in enumerate(codes):
+            acc[q] = acc[q] + vals[:, i]
+        lane = [v + 0.0 if code >> 11 + q & 1 else v for q, v in enumerate(acc)]
+        want = (((lane[0] + lane[2]) + (lane[1] + lane[3])) + lane[4] if Q == 5
+                else (lane[0] + lane[1]) + lane[2] if Q == 3 else lane[0])
+        got = plan_sum([vals[:, at] for _, at in order], balanced, zero)
+        assert_bits_equal(got, want)
+
+
+def kernel_chunked(scn, density, recv_prev, cap_default, od_flow_t, warps=4):
+    """``csrc/routing.cu``'s streamed design as its block of ``warps``
+    warps works a unit, every replica at once: the unit's down slots'
+    terms; the (node, up) sum, each warp adding the groups of its GEMV rows
+    (q % W == w); then chunk by chunk of the unit's groups (those that end
+    within ``LANE_CHUNK`` entries of the chunk's first), each warp working
+    the groups w, w + W, ... on its own (a group of at most four entries
+    by its record's plan, a longer one through row accumulators) and
+    writing each entry's contribution to the chunk's buffer at its entry,
+    then each warp adding the buffer's entries of its accumulators
+    (s % W == w) into phi in ascending id; the guard of the unit's row."""
+    rt, tabs, M = scn.routing, scn.routing_kernel_tables, scn.max_deg
+    f = rt.dist_util.dtype
+    B, Q = density.shape[0], rt.group_members.shape[1]
+    od = od_flow_t.to(f)
+    od = od.expand(B, -1) if od.dim() == 1 else od
+    dens_all, rp_all, cd_all = density.to(torch.float32), recv_prev.to(f), cap_default.to(f)
+    out = torch.empty((B, rt.num_routed, M, M), dtype=f)
+    entry, group, unit = (tabs.lane_entry.tolist(), tabs.lane_group.tolist(),
+                          tabs.lane_unit.tolist())
+    dist_util = tabs.lane_dist_util
+
+    def fresh(n):
+        return [torch.full((B,), -0.0, dtype=f) for _ in range(n)]
+
+    def rows_sum(rows, short):
+        lane = [v + 0.0 if short >> q & 1 else v for q, v in enumerate(rows)]
+        if Q == 5:
+            return ((lane[0] + lane[2]) + (lane[1] + lane[3])) + lane[4]
+        if Q == 3:
+            return (lane[0] + lane[1]) + lane[2]
+        return lane[0]
+
+    for r in range(rt.num_routed):
+        link = tabs.lane_down_link[r].long()
+        real, safe = link >= 0, link.clamp(min=0)
+        rp = rp_all[:, safe]
+        cap = torch.where(real, torch.where(rp >= 0, rp, cd_all[:, safe]), 100.0)
+        dens = torch.where(real, dens_all[:, safe], 0.0)
+        bn = (rt.beta * (torch.clamp(dens - 2.0, min=0.0) / 8.0)).to(f)
+        for u in range(M):
+            (g0, k_unit, ug), (g1, _, _) = unit[r * M + u], unit[r * M + u + 1]
+            tot_rows = [None] * Q
+            for w in range(warps):
+                acc = fresh(Q)
+                for p, code, _, _ in group[g0:g1]:
+                    if (code >> 8 & 7) % warps == w:
+                        acc[code >> 8 & 7] = acc[code >> 8 & 7] + od[:, p]
+                for q in range(w, Q, warps):
+                    tot_rows[q] = acc[q]
+            tot = rows_sum(tot_rows, tabs.lane_uo_short[ug].item()) if ug >= 0 else None
+            inv = torch.tensor(1.0, dtype=f) / (g1 - g0)
+            phi = fresh(M * Q)
+            c = g0
+            while c < g1:
+                recs = group[c:min(c + 32, g1)]
+                first = recs[0][2]
+                ends = [at - first + (code & 255) for _, code, at, _ in recs]
+                fits = [end <= LANE_CHUNK for end in ends]
+                mc = sum(fits)
+                assert all(fits[:mc]) and mc >= 1
+                chunk, k0 = ends[mc - 1], k_unit + first
+                cbuf = [None] * chunk
+                for w in range(warps):
+                    for p, code, at, packed in recs[w:mc:warps]:
+                        n, short, at = code & 255, code >> 11 & 31, at - first
+                        pu = torch.where(tot > 0, od[:, p] / torch.where(tot > 0, tot, 1.0),
+                                         inv)
+                        if n <= 4:
+                            # the group's sums by its plan, its entries from its record
+                            order, balanced, zero = plan_of(code, packed)
+                            cap_sum = plan_sum([cap[:, d] for d, _ in order], balanced,
+                                               zero) + 1e-6
+                            z = [exp_like_xla(-rt.temp * ((dist_util[k0 + at + i] + bn[:, d])
+                                                          - (rt.omega * cap[:, d]) / cap_sum))
+                                 for d, i in order]
+                            zsum = plan_sum(z, balanced, zero)
+                            for zi, (_, i) in zip(z, order):
+                                cbuf[at + i] = (zi / zsum) * pu
+                            continue
+                        codes = [(e & 31, e >> 5 & 7) for e in entry[k0 + at:k0 + at + n]]
+                        acc = fresh(Q)
+                        for d, lane in codes:
+                            acc[lane] = acc[lane] + cap[:, d]
+                        cap_sum = rows_sum(acc, short) + 1e-6
+                        acc, z = fresh(Q), []
+                        for i, (d, lane) in enumerate(codes):
+                            util = ((dist_util[k0 + at + i] + bn[:, d])
+                                    - (rt.omega * cap[:, d]) / cap_sum)
+                            z.append(exp_like_xla(-rt.temp * util))
+                            acc[lane] = acc[lane] + z[-1]
+                        zsum = rows_sum(acc, short)
+                        for i, zi in enumerate(z):
+                            cbuf[at + i] = (zi / zsum) * pu
+                assert all(x is not None for x in cbuf)
+                for w in range(warps):
+                    for e in range(chunk):
+                        s = (entry[k0 + e] & 31) * Q + (entry[k0 + e] >> 5 & 7)
+                        if s % warps == w:
+                            phi[s] = phi[s] + cbuf[e]
+                c += mc
+            row = torch.stack([rows_sum(phi[d * Q:(d + 1) * Q],
+                                        tabs.lane_phi_short[(r * M + u) * M + d].item())
+                               for d in range(M)], -1)
+            rowsum = row[:, :1]
+            for j in range(1, M):
+                rowsum = rowsum + row[:, j:j + 1]
+            need, pos = torch.abs(rowsum - 1.0) > 1e-3, rowsum > 1e-6
+            out[:, r, u] = torch.where(need & pos, row / rowsum,
+                                       torch.where(need, rt.offdiag_uniform[r, u], row))
+    return out
+
+
+KERNEL_MODELS = {"walk": kernel_walk, "stream": kernel_stream, "chunked": kernel_chunked}
 
 
 @pytest.fixture(scope="module")
@@ -388,16 +558,59 @@ def test_kernel_walk_is_the_plain_version_on_delft_tables(ftype, exact, Q, model
                           turning_fractions_step_plain(scn, *ops_))
 
 
+@pytest.mark.parametrize("model", KERNEL_MODELS)
+@pytest.mark.parametrize("ftype,exact", [(torch.float32, False), (torch.float64, False),
+                                         (torch.float64, True)])
+def test_kernel_models_are_the_plain_version_on_a_fan(ftype, exact, model):
+    """A softmax group of six entries (``routing_fan``): the streamed
+    design's record carries no plan for it and its sums take the row
+    accumulators; two such groups share a unit."""
+    scn = fan_scenario("cpu", ftype=ftype, exact_parity=exact)
+    tabs = scn.routing_kernel_tables
+    assert tabs.group_max == 6 and tabs.unit_groups == 2
+    check_node_offsets(scn)
+    for per_replica_od in (False, True):
+        ops_ = routing_operands(scn, 4, 14, per_replica_od)
+        assert_bits_equal(KERNEL_MODELS[model](scn, *ops_),
+                          turning_fractions_step_plain(scn, *ops_))
+
+
 def test_routing_wrapper_takes_the_plain_version_on_the_cpu():
     scn = delft(torch.float32, False)
     ops_ = routing_operands(scn, 2, 13, False)
-    before = (dict(ops.turning_fractions.launches),
-              dict(ops.turning_fractions.launches_by_design))
+    tf = ops.turning_fractions
+    before = (dict(tf.launches), dict(tf.launches_by_design), dict(tf.launches_by_warps))
     got = ops.turning_fractions(scn, *ops_)
     assert_bits_equal(got, turning_fractions_step_plain(scn, *ops_))
     assert engine.turning_fractions_step is ops.turning_fractions
-    assert (ops.turning_fractions.launches, ops.turning_fractions.launches_by_design) == before
-    assert before == ({"float32": 0, "float64": 0}, {"lanes": 0, "rows": 0})
+    assert (tf.launches, tf.launches_by_design, tf.launches_by_warps) == before
+    assert before == ({"float32": 0, "float64": 0}, {"lanes": 0, "rows": 0},
+                      {1: 0, 2: 0, 4: 0, 8: 0})
+
+
+@pytest.mark.parametrize("name,batch,warps", [
+    ("env", 32768, 2), ("env", 256, 4), ("env", 64, 8), ("env", 32, 8),
+    ("delft", 10240, 2), ("delft", 32, 8), ("melbourne", 16384, 1), ("melbourne", 32, 1)])
+def test_streamed_geometry_follows_batch_and_tables(env_tables, monkeypatch, name, batch,
+                                                    warps):
+    """The streamed design's warps a block on an H100's 132 SMs: at least
+    two where the units hold the groups to share out (the env's and
+    delft's benchmark batches), more where the units and tiles leave SMs
+    short of 40 warps (small batches), never more than a unit's groups
+    (melbourne's one group a unit: one warp) or the launch bounds' 8; the
+    block's shared memory whatever its warps; the walk below a warp of
+    replicas."""
+    from pednstream_tpu_torch.ops import routing as kernel
+
+    monkeypatch.setattr(kernel, "_sm_count", lambda device: 132)
+    scn = {"env": env_tables, "delft": delft(torch.float32, False),
+           "melbourne": torch_build(**NetworkEnvGenerator().scenario_args("melbourne"))}[name]
+    tabs = scn.routing_kernel_tables
+    assert kernel._geometry(tabs, batch, "cuda") == (warps, kernel.lane_bytes(tabs))
+    words = scn.max_deg * (2 + tabs.rows) + tabs.rows + LANE_CHUNK
+    assert kernel.lane_bytes(tabs) == 32 * 4 * words
+    assert kernel._geometry(tabs, 31, "cuda") == (0, tabs.rows_shared_bytes)
+    assert warps in ops.turning_fractions.launches_by_warps
 
 
 def test_dense_placement_is_the_jax_exact_path():
